@@ -2,8 +2,7 @@
 
 Superseded by :mod:`benchmarks.bench_cli_wall`, which generalizes the
 same measurement to any geometry; this wrapper keeps the original
-name/CLI working (BASELINE.md's round-3 CIF numbers were recorded with
-it).
+name/CLI working.
 
 Usage: python benchmarks/bench_cif_cli.py [n_frames]
 """

@@ -1,9 +1,9 @@
-"""Build and time the C++ reference encoder on this host (BASELINE.md).
+"""Build and time the C++ reference encoder on the host CPU (BASELINE.md).
 
 The reference publishes no numbers (reference README.md has only result
 videos), so the measurable baseline is the reference binary itself, built
 from the unmodified sources via tests/golden/build_reference_apps.sh and
-timed on the same synthetic clips the TPU benchmarks use. Output goes to
+timed on the same synthetic clips the codec's benchmarks use. Output goes to
 /dev/null so the number is video-decode + encode compute, not disk
 bandwidth (the 1080p bitstream is ~25 MB/frame).
 

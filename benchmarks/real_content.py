@@ -1,8 +1,8 @@
 """Real-content validation run: encode -> decode -> PSNR/bitrate.
 
 The reference was validated on CDW-2014 changedetection.net clips
-(reference README.md:81-97), which cannot be fetched in this environment
-(no network egress). This run substitutes real *photographic* content from
+(reference README.md:81-97), which the repo does not ship and the
+codec never downloads. This run substitutes real *photographic* content from
 images shipped on the machine (scikit-learn's sample photographs): a CIF
 clip made of a slow camera pan over a real photo with a real-texture
 moving object composited on top — natural gradients, edges, and textures

@@ -1,9 +1,9 @@
-// svcio — native host runtime for the TPU video codec.
+// svcio — native host runtime for the svc_tpu video codec.
 //
 // The reference implements its host runtime in C++: a bounded circular
 // queue feeding reader/writer threads (libs/queue.hpp, apps/encoder.cpp:
 // 125-170) and per-frame byte serialization (libs/encoder.cpp:222-269).
-// This library is the TPU framework's native equivalent: the wire-format
+// This library is the framework's native equivalent: the wire-format
 // hot path (interleaving block types with per-channel coefficient planes)
 // and a pipelined bitstream writer, callable from Python via ctypes.
 //

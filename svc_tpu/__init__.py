@@ -1,8 +1,8 @@
-"""svc_tpu — a TPU-native (JAX/XLA/Pallas) scalable video codec framework.
+"""svc_tpu — a JAX/XLA scalable video codec framework for accelerators.
 
 A from-scratch rebuild of the capabilities of
 ``fonzcastellanos/scalable-video-codec`` (a C++17/OpenCV/SSE2 content- and
-gaze-adaptive scalable video codec) designed TPU-first:
+gaze-adaptive scalable video codec) designed accelerator-first:
 
 * the hierarchical block-matching motion search (HBMA) is a batched,
   vectorized device kernel instead of an SSE2 scalar loop
@@ -11,7 +11,7 @@ gaze-adaptive scalable video codec) designed TPU-first:
   scoring instead of a sequential iteration loop (libs/motion.cpp:182-266),
 * morphology, k-means and connected-component labeling are jitted
   on-device ops replacing OpenCV calls (libs/encoder.cpp:524-623),
-* the blockwise 8x8 DCT/IDCT are MXU matmuls, fused with region/gaze
+* the blockwise 8x8 DCT/IDCT are matrix products, fused with region/gaze
   adaptive quantization (libs/encoder.cpp:323-339, libs/decoder.cpp:128-149),
 * the per-frame thread-queue streaming pipeline (apps/encoder.cpp:125-229)
   becomes batched multi-frame jitted execution, sharded over a

@@ -135,10 +135,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv if argv is None else argv)
     cfg = _AppConfig()
 
-    from svc_tpu.runtime.platform import assert_env_platform
-
-    assert_env_platform()
-
     status, _ = cli.parse_opts(argv, _opts(cfg))
     if status != cli.Status.OK:
         print(

@@ -19,7 +19,7 @@ Extensions beyond the reference surface:
                     encoding (the reference encoder-visualizer's display,
                     libs/encoder.cpp:654-659); requires OpenCV
   --devices N       shard frame batches across N devices of a 1-D mesh
-                    (jax.sharding over ICI; ``--batch-size`` becomes the
+                    (``jax.sharding``; ``--batch-size`` becomes the
                     per-device batch). The bitstream is byte-identical to
                     a single-device encode. 0 (default) = single device.
 """
@@ -156,9 +156,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"  Frame count: {props.frame_count}", file=sys.stderr)
 
     from svc_tpu.runtime.cache import enable_persistent_cache
-    from svc_tpu.runtime.platform import assert_env_platform
 
-    assert_env_platform()
     enable_persistent_cache()
 
     if cfg.devices > 1:

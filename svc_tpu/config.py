@@ -10,7 +10,7 @@ surface, defaults, and error messages stay compatible:
 * validation rules      (reference: libs/encoder.cpp:20-142, libs/decoder.cpp:35-47)
 * default values        (reference: apps/encoder.cpp:28-58, apps/decoder.cpp:21-26)
 
-New, TPU-specific fields (all optional, defaulted):
+New fields beyond the reference (all optional, defaulted):
 
 * ``seed`` — RANSAC/k-means run under an explicit PRNG key instead of the
   reference's nondeterministic ``std::random_device`` (quirk Q7,
@@ -59,7 +59,7 @@ class EncoderConfig:
     connected_components_connectivity: int = 4
     transform_block_w: int = 8
     transform_block_h: int = 8
-    # --- TPU-framework extensions (not part of the reference surface) ---
+    # --- framework extensions (not part of the reference surface) ---
     seed: int = 0
     reference_compat: bool = False
 

@@ -2,7 +2,7 @@
 
 The reference computes no metrics anywhere (SURVEY.md §5); PSNR and
 bitrate measurement are new harness code and the framework's north-star
-quality gauges (BASELINE.json).
+quality gauges (BASELINE.md).
 """
 
 from __future__ import annotations

@@ -32,17 +32,9 @@ import numpy as np
 
 from svc_tpu.config import DecoderConfig
 from svc_tpu.io import bitstream
-from svc_tpu.ops import interleave
-from svc_tpu.ops.dct import idct2_wire_to_planes_pitched
-from svc_tpu.ops.dct_pallas import (
-    idct_wire_resample_pallas,
-    idct_wire_to_pitched_pallas,
-    pallas_wire_idct_resample_supported,
-    pallas_wire_idct_supported,
-)
+from svc_tpu.ops.dct import idct2_wire_to_planes
 from svc_tpu.ops.quant import block_quant_steps, quantize
 from svc_tpu.ops.resize import resize_bilinear
-from svc_tpu.runtime.layouts import PinnedDispatch, row_major_format
 from svc_tpu.utils.mathx import round_half_away_from_zero
 
 
@@ -98,21 +90,9 @@ class Decoder:
         self.header = header
         self.batch_size = batch_size
         fn = self._build_decode_batch()
+        self._mesh = mesh
         if mesh is None:
-            pins = self._layout_pins()
-            jitted = jax.jit(fn, **pins)
-            self._decode_jit = jitted  # profilers lower()/compile() this
-            # layout-safe dispatch of the pinned coefficient parameter:
-            # compiled once ahead-of-time, canonical format read from the
-            # executable itself (rationale + hazards: runtime/layouts.py)
-            if pins:
-                self._decode_batch = PinnedDispatch(
-                    jitted,
-                    pinned_argnums=(0,),
-                    fallback_formats={0: pins["in_shardings"][0]},
-                )
-            else:
-                self._decode_batch = jitted
+            self._decode_batch = jax.jit(fn)
         else:
             from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -144,49 +124,10 @@ class Decoder:
 
             self._decode_batch = decode_sharded
 
-    @staticmethod
-    def packed_bytes(out) -> np.ndarray:
-        """Host uint8 view of a ``_decode_batch`` result.
-
-        The fast display routes emit packed rows as int32 WORDS (four
-        display bytes per lane, packed in-kernel — the tail relayout
-        then moves 4x fewer elements); a little-endian host view of
-        those words is exactly the packed (T, H, W*C) byte rows. The
-        remaining routes emit uint8 directly."""
-        a = np.asarray(out)
-        if a.dtype == np.int32:
-            if not a.flags["C_CONTIGUOUS"]:
-                # device_get may hand back a strided view
-                a = np.ascontiguousarray(a)
-            return a.view(np.uint8)
-        return a
-
     def stage_coeffs(self, coeffs: np.ndarray):
-        """Transfer host wire coefficients into the program's own device
-        layout in one H2D copy (benchmarks/pipelines that stage inputs
-        ahead of the timing loop should use this — a bare ``device_put``
-        picks XLA's default layout and forces a 2.2 ms on-device relayout
-        per 1080p batch)."""
-        if isinstance(self._decode_batch, PinnedDispatch):
-            return self._decode_batch.stage(0, coeffs)
-        return jnp.asarray(coeffs)
-
-    def _layout_pins(self):
-        """Pin the jitted step's boundary layouts to row-major.
-
-        Same rationale as ``Encoder._layout_pins``: left to itself, XLA
-        picks a minor-to-major order for the 400 MB/batch coefficient
-        parameter that "helps" the IDCT kernel's tiling and then inserts a
-        full-tensor relayout copy at program start (measured 2.2 ms of the
-        12 ms 1080p decode batch). The host ships row-major wire
-        coefficients, so the pin deletes pure waste. Best-effort."""
-        in_fmt = row_major_format(4)
-        if in_fmt is None:
-            return {}
-        return {
-            "in_shardings": (in_fmt, None, None),
-            "out_shardings": row_major_format(3),
-        }
+        """Transfer host wire coefficients to the device — the staged half
+        of ``decode_frames``' H2D/compute overlap."""
+        return jax.device_put(coeffs)
 
     def _build_decode_batch(self):
         cfg = self.cfg
@@ -224,152 +165,22 @@ class Decoder:
 
             steps = jax.vmap(frame_steps)(block_types, gaze_rects)
 
-            def resize_frame(planes, col_map):
+            def per_frame(c, st):
+                # per-block steps broadcast directly in block layout
+                deq = quantize(c, st[:, :, None])
+                planes = idct2_wire_to_planes(deq, channels, tbh, tbw)
                 # display path: /255, bilinear resize to original size,
                 # imshow (libs/decoder.cpp:208-211); the /255 and the
                 # implicit *255 of display cancel — resize in 0..255 space
-                out = resize_bilinear(
-                    planes, h.frame_h, h.frame_w, col_map=col_map
-                )
+                out = resize_bilinear(planes, h.frame_h, h.frame_w)
                 return jnp.clip(jnp.round(out), 0, 255).astype(jnp.uint8)
 
-            if pallas_wire_idct_supported(channels, nby, nbx, tbh, tbw):
-                cols = np.arange(nbx * tbw, dtype=np.int32)
-                col_map = np.stack([cols % tbw, cols // tbw])
-                from svc_tpu.ops.resize import (
-                    bilinear_axis_weights,
-                    resize_rows_pitched,
-                )
-
-                x0, _, _, x_ident = bilinear_axis_weights(
-                    h.frame_w, nbx * tbw
-                )
-                # combined un-pitch + interleave: with the channel axis
-                # emitted just above (bw, nbx), each display row's source
-                # block (C, bw, nbx) is lane-contiguous, so the whole
-                # tail is ONE constant lane gather to packed (T, H, W*C)
-                # — replacing the separate un-pitch gather plus
-                # interleave einsum (measured 1.07 ms -> one gather at
-                # 1080p/16)
-                cidx = np.repeat(
-                    np.arange(channels, dtype=np.int32)[None, :],
-                    h.frame_w, axis=0,
-                ).reshape(-1)
-                jidx = np.repeat(col_map[0][x0], channels)
-                xidx = np.repeat(col_map[1][x0], channels)
-
-                def gather_packed(rows_u8):
-                    # one 3-axis gather over the minor (C, bw, nbx)
-                    # block — NOT a flatten-then-take: merging the
-                    # tile-padded (C, bw, nbx) minors into one lane axis
-                    # materializes a full relayout copy (measured
-                    # 0.62 ms/batch at 1080p)
-                    return rows_u8[:, :, cidx, jidx, xidx]
-
-                # the fused dequant + wire-IDCT kernel emits pitched
-                # planes in ONE batched call (the XLA path below pays
-                # mostly-zero (C*n, C*n) stage dots plus a full pitch
-                # transpose); the display stage then takes one of three
-                # routes depending on which resize axes are identities
-                if x_ident and h.frame_h == ph:
-                    # both axes identities (zero frame excess — e.g.
-                    # 4K): the display round/clip AND the j-major
-                    # channel interleave fuse into the IDCT kernel
-                    # (u8 merged-minor output, quarter the write
-                    # traffic), the "resize" disappears, and the
-                    # packed tail is ONE swapaxes relayout instead of
-                    # the 3-axis gather (same trick/measurement as the
-                    # fused resample route below)
-                    rows = idct_wire_to_pitched_pallas(
-                        coeffs, steps, channels, tbh, tbw,
-                        merged_minor=True,
-                    )  # j-major merged minor: (T, PH, bw*C, nbx) u8,
-                    # or (T, PH, bw*C/4, nbx) int32 packed words
-                    return jnp.swapaxes(rows, 2, 3).reshape(
-                        rows.shape[0], h.frame_h,
-                        rows.shape[2] * nbx,
-                    )
-                elif x_ident:
-                    # width-aligned geometry (frame_w == padded width —
-                    # every mv-block-divisible width, incl. CIF/1080p):
-                    # the column step is a pure un-pitch gather, so the
-                    # display round/clip commutes past the gather and
-                    # the whole hot path — dequant, wire IDCT, row
-                    # resample, round/clip — fuses into ONE kernel whose
-                    # 2-row resample halo lives in a VMEM ring (the
-                    # unfused pair round-trips an 802 MB pitched float32
-                    # stack through HBM at 1080p/16)
-                    y0, y1, fy, _ = bilinear_axis_weights(h.frame_h, ph)
-                    if pallas_wire_idct_resample_supported(
-                        channels, nby, nbx, tbh, tbw, y0, y1, fy,
-                        h.frame_h,
-                    ):
-                        rows = idct_wire_resample_pallas(
-                            coeffs, steps, channels, tbh, tbw,
-                            y0, y1, fy, h.frame_h,
-                        )  # j-major merged minor (u8), or int32
-                        # packed words when bw*C % 4 == 0
-                        # packed rows = swapaxes + minor flatten: the
-                        # j-major merged layout makes the display tail
-                        # ONE XLA relayout (0.71 ms/batch vs 1.36 for
-                        # every gather variant measured; 0.30 when the
-                        # kernel packs 4 bytes per int32 word —
-                        # benchmarks/micro_decode_tail.py I vs L)
-                        return jnp.swapaxes(rows, 2, 3).reshape(
-                            rows.shape[0], h.frame_h,
-                            rows.shape[2] * nbx,
-                        )
-                    pitched = idct_wire_to_pitched_pallas(
-                        coeffs, steps, channels, tbh, tbw,
-                        channel_minor=True,
-                    )  # (T, PH, C, bw, nbx) float32
-                    rows_u8 = resize_rows_pitched(
-                        pitched, h.frame_h, emit_u8=True,
-                        channel_minor=True,
-                    )
-                    return gather_packed(rows_u8)
-                else:
-                    pitched = idct_wire_to_pitched_pallas(
-                        coeffs, steps, channels, tbh, tbw
-                    )
-                    planes = jax.vmap(
-                        lambda p: resize_frame(p, col_map)
-                    )(pitched)
-            else:
-
-                def per_frame(c, st):
-                    # per-block steps broadcast directly in block layout
-                    deq = quantize(c, st[:, :, None])
-                    # column-pitched planes: the spatial layout's
-                    # transpose tile-pads 16x; the resize gathers through
-                    # col_map, bit-identically
-                    pitched, col_map = idct2_wire_to_planes_pitched(
-                        deq, channels, tbh, tbw
-                    )
-                    return resize_frame(pitched, col_map)
-
-                planes = jax.vmap(per_frame)(
-                    coeffs, steps
-                )  # (T, C, H, W) uint8
-            # interleave to packed (T, H, W*C): channel planes stay dense
-            # on device (a trailing C=3 axis tile-pads to 128 lanes); the
-            # host views the packed rows as (H, W, C) for free
-            wch = h.frame_w * channels
-            if interleave.lane_aligned(h.frame_w):
-                # selection-matmul interleave (ops/interleave.py, the
-                # inverse of the encoder's de-interleave): one exact bf16
-                # product per packed byte
-                return interleave.interleave_rows(planes)
-            lane_mod = (
-                jnp.arange(wch, dtype=jnp.int32) % channels
-            )[None, None, :]
-            rep = jnp.repeat(planes, channels, axis=-1)  # (T, C, H, W*C)
-            packed = jnp.zeros(
-                (planes.shape[0], h.frame_h, wch), jnp.uint8
+            planes = jax.vmap(per_frame)(coeffs, steps)  # (T, C, H, W)
+            # interleave to packed (T, H, W*C); the host views the packed
+            # rows as (H, W, C) for free
+            return jnp.moveaxis(planes, 1, -1).reshape(
+                planes.shape[0], h.frame_h, h.frame_w * channels
             )
-            for ci in range(channels):
-                packed = jnp.where(lane_mod == ci, rep[:, ci], packed)
-            return packed
 
         return decode_batch
 
@@ -422,7 +233,7 @@ class Decoder:
         overlap (apps/decoder.cpp:55-88).
 
         Host->device staging ALSO overlaps compute (``stage_h2d``, on the
-        single-chip pinned-layout path): each batch's wire coefficients —
+        single-device path): each batch's wire coefficients —
         by far the heaviest transfer, 401 MB/batch at 1080p/16 — are
         shipped on a worker thread (runtime.staging.DoubleBufferedStager)
         while the previous batch computes, so steady state is bounded by
@@ -450,10 +261,6 @@ class Decoder:
                 buf_c.append(buf_c[-1])
                 buf_t.append(buf_t[-1])
                 buf_g.append(buf_g[-1])
-            # host arrays pass straight to the jit boundary: the H2D
-            # transfer writes the pinned coefficient layout directly
-            # (a jnp.asarray here would land in XLA's default layout and
-            # pay a full on-device relayout, see _layout_pins)
             args = (
                 np.stack(buf_c),
                 np.stack(buf_t),
@@ -466,7 +273,7 @@ class Decoder:
 
         def fetch(done):
             out, n_valid = done
-            packed = self.packed_bytes(out)[:n_valid]  # (n, H, W*C)
+            packed = np.asarray(out)[:n_valid]  # (n, H, W*C)
             return packed.reshape(
                 packed.shape[0],
                 self.header.frame_h,
@@ -485,7 +292,7 @@ class Decoder:
 
         stager = None
         staged_meta = None  # (types, rects, n_valid) of the staged batch
-        if stage_h2d and isinstance(self._decode_batch, PinnedDispatch):
+        if stage_h2d and self._mesh is None:
             from svc_tpu.runtime.staging import DoubleBufferedStager
 
             stager = DoubleBufferedStager(self.stage_coeffs)
@@ -514,8 +321,7 @@ class Decoder:
                         payload, self.header
                     )
                 gaze = next(gazes, None) if gazes is not None else None
-                # merged trailing axis: free host view, dense device
-                # tiling
+                # merged trailing C*bh*bw axis: a free host view
                 buf_c.append(
                     coeffs.reshape(coeffs.shape[0], coeffs.shape[1], -1)
                 )

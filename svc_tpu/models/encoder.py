@@ -1,4 +1,4 @@
-"""The encoder pipeline: batched, jitted, TPU-first.
+"""The encoder pipeline: batched and jitted.
 
 Implements the per-frame pipeline of the reference encoder
 (reference: libs/encoder.cpp:341-667) as one jitted transform over a batch
@@ -48,22 +48,13 @@ from svc_tpu.config import EncoderConfig, VideoProperties
 from svc_tpu.io import bitstream
 from svc_tpu.ops.ccl import block_types_from_clusters
 from svc_tpu.ops.color import bgr_planes_to_y
-from svc_tpu.ops import interleave
 from svc_tpu.ops.dct import dct2_planes_to_wire
-from svc_tpu.ops.dct_pallas import (
-    dct2_jsplit_to_wire_pallas,
-    dct2_planes_to_wire_pallas,
-    pallas_wire_dct_jsplit_supported,
-    pallas_wire_dct_supported,
-)
 from svc_tpu.ops.kmeans import kmeans_t_frames
 from svc_tpu.ops.morphology import close_then_open
 from svc_tpu.ops.motion import hbma_stack
 from svc_tpu.ops.pad import pad_frame, padded_dims
 from svc_tpu.ops.pyramid import build_pyramid
 from svc_tpu.ops.ransac import estimate_global_motion_ransac, iter_count
-from svc_tpu.runtime.layouts import PinnedDispatch, row_major_format
-
 
 class Encoder:
     """Batched video encoder.
@@ -74,8 +65,8 @@ class Encoder:
       batch_size: anchor frames encoded per compiled step.
       keep_planes: include the padded channel planes in the outputs
         (``padded_planes``, the full ``(3, T+1, PH, PW)`` stack). Only the
-        visualizer consumes them; materializing the 100 MB/batch output
-        costs ~0.3 ms at 1080p, so the default drops it.
+        visualizer consumes them, so the default drops the extra
+        ~100 MB/batch output at 1080p.
     """
 
     def __init__(
@@ -107,103 +98,10 @@ class Encoder:
                 "RANSAC parameters yield zero hypotheses; nothing to fit"
             )
 
-        # j-split frontend: the de-interleave emits DCT-column-pitched
-        # subplanes directly (ops/interleave.deinterleave_rows_jsplit), so
-        # the spatial planes — and the ~1 ms/batch pitch transpose that
-        # fed the DCT kernel — never materialize. Luma computes pointwise
-        # in the pitched layout and respatializes with one thin transpose
-        # (1/3 of the plane bytes). Needs an unpadded lane-aligned width
-        # and the paired wire-DCT kernel; the visualizer path
-        # (keep_planes) wants spatial planes and keeps the classic route.
-        self._use_jsplit = (
-            not keep_planes
-            and self.excess_w == 0
-            and interleave.jsplit_supported(
-                vidprops.frame_w, cfg.transform_block_w
-            )
-            and pallas_wire_dct_jsplit_supported(
-                3,
-                self.padded_h,
-                self.padded_w,
-                cfg.transform_block_w,
-                cfg.transform_block_h,
-            )
-        )
-
-        # DCT pad-skip (dct2_jsplit_to_wire_pallas padded_h: synthesize
-        # the pad block rows' coefficients as exact zeros instead of
-        # padding the planes) is OFF: measured at 1080p/16, deleting the
-        # 0.22 ms u8 plane pad moved XLA's layout transition onto the
-        # luma chain's int32 intermediates (+0.9 ms of copies) and
-        # slowed the DCT kernel's masked tail block (+0.08) — a net
-        # loss. The kernel capability stays (tested bit-identical,
-        # tests/test_dct.py::test_jsplit_pad_skip_bit_identical).
-        self._dct_pad_skip = False
-
-        # pitched-luma motion frontend (pyramid level 1 + base-level
-        # refine fed straight from the j-split luma subplanes; the
-        # spatial luma plane never materializes). Bit-exact and fully
-        # tested (tests/test_pitched_frontend.py), but OFF by default:
-        # measured on v5e at 1080p/16 it is a wash-to-loss — the q
-        # sublane stack (16-piece concat, 0.77 ms/batch) plus the
-        # explicit luma materialization (0.37) cost what the deleted
-        # respatialize (0.59) + refine plane prep (0.65) saved, and the
-        # single-dot q variant measured worse still (2.16 vs 1.67 ms
-        # standalone). Kept as the measured record + the building block
-        # for a future in-kernel q assembly.
-        self._use_pitched_motion = False
-
         self.encode_pairs = self._build_encode_pairs()
         # the traceable batch step (public, for jit/sharding composition)
         self.encode_batch_fn = self._build_encode_batch()
-        pins = self._layout_pins()
-        jitted = jax.jit(self.encode_batch_fn, **pins)
-        self._encode_jit = jitted
-        # layout-safe dispatch of the pinned frame parameter: the wrapper
-        # compiles once ahead-of-time, reads the executable's OWN concrete
-        # input format, and normalizes device-resident arguments to it —
-        # a mismatched tiling can never reach the executable (rationale +
-        # hazards: runtime/layouts.py)
-        if pins:
-            self._encode_batch = PinnedDispatch(
-                jitted,
-                pinned_argnums=(0,),
-                fallback_formats={0: pins["in_shardings"][0]},
-            )
-        else:
-            self._encode_batch = jitted
-
-    def _layout_pins(self):
-        """Pin the jitted step's boundary layouts to row-major.
-
-        Left to itself, XLA picks minor-to-major orders for the program
-        parameters and results that "help" the surrounding transfers — and
-        then inserts full-tensor relayout copies inside the program to get
-        back to what the pipeline actually uses (measured: 1.5 ms/batch on
-        the coefficient output + 0.6 ms on the packed input at 1080p).
-        Row-major is what the host ships and what the serializer memcpys,
-        so both pins delete pure waste. Best-effort: on backends or jax
-        versions without concrete-layout support, fall back to defaults.
-        """
-        in_fmt = row_major_format(3)
-        if in_fmt is None:
-            return {}
-        out_shardings = {
-            "coeffs": row_major_format(4),
-            "block_types": None,
-            "mv_field": None,
-            "foreground_mask_raw": None,
-            "foreground_mask": None,
-            "cluster_labels": None,
-            "global_motion": None,
-            "ransac_rmse": None,
-        }
-        if self.keep_planes:
-            out_shardings["padded_planes"] = None
-        return {
-            "in_shardings": (in_fmt, None),
-            "out_shardings": out_shardings,
-        }
+        self._encode_batch = jax.jit(self.encode_batch_fn)
 
     # ------------------------------------------------------------------
     # jitted pipeline
@@ -215,9 +113,8 @@ class Encoder:
         Every (tracked, anchor) pair is independent — the basis for both
         single-chip batching and frame-parallel multi-chip sharding
         (svc_tpu.parallel.sharding). Motion runs on the FULL stack through
-        ``hbma_stack`` (frame pairing lives in the kernel's index maps, so
-        no tracked/anchor pyramid slices are ever materialized); the
-        per-frame segmentation tail is vmapped over the resulting fields.
+        ``hbma_stack``; the per-frame segmentation tail is vmapped over the
+        resulting fields.
         """
         cfg = self.cfg
         mfh, mfw = self.mv_field_h, self.mv_field_w
@@ -226,9 +123,8 @@ class Encoder:
         def per_pair(mv: jnp.ndarray, key: jnp.ndarray):
             """Segmentation frontend for one frame's motion field
             (everything up to the k-means features; the clustering itself
-            runs frame-BATCHED outside the vmap — ops.kmeans
-            kmeans_t_frames — so all frames' Lloyd attempts share one
-            fused kernel invocation)."""
+            runs frame-batched outside the vmap — ops.kmeans
+            kmeans_t_frames)."""
             k_ransac, k_kmeans = jax.random.split(key)
             gm, rmse, inliers = estimate_global_motion_ransac(
                 mv, cfg.ransac, k_ransac
@@ -252,8 +148,8 @@ class Encoder:
             )
             ys = jnp.broadcast_to(ys, (mfh, mfw))
             xs = jnp.broadcast_to(xs, (mfh, mfw))
-            # features built dimension-major (D, N) so k-means never
-            # transposes on device (svc_tpu.ops.kmeans layout note)
+            # features built dimension-major (D, N), the layout k-means
+            # takes (svc_tpu.ops.kmeans)
             if cfg.reference_compat:
                 # quirk Q1: effective reference layout (0, mv.x, x, y)
                 rows = [jnp.zeros_like(xs), mv[..., 0], xs, ys]
@@ -277,9 +173,7 @@ class Encoder:
                 ``t+1`` (libs/encoder.cpp:661-663).
               planes: ``(3, T+1, PH, PW)`` uint8 padded channel planes of
                 the full stack, order B, G, R (= ``cv::split`` order) —
-                frames ``1:`` are the DCT input, consumed via the DCT
-                kernel's frame-offset index maps so the anchor slice is
-                never materialized (see dct2_planes_to_wire_pallas).
+                frames ``1:`` are the DCT input.
               keys: ``(T,)`` PRNG keys.
             """
             mv, _ = hbma_stack(
@@ -287,9 +181,6 @@ class Encoder:
                 cfg.mv_search_range,
                 cfg.mv_block_w,
                 cfg.mv_block_h,
-                base_pitched=(
-                    pyr_stack[0] if self._use_pitched_motion else None
-                ),
             )
             fg_raw, fg, gm, rmse, feats, masks, kmeans_keys = jax.vmap(
                 per_pair
@@ -304,7 +195,7 @@ class Encoder:
                 epsilon=cfg.kmeans.epsilon,
                 # reference-compat replicates cv::kmeans' empty-cluster
                 # rule (split the biggest cluster) exactly; production
-                # uses the TPU-cheap global-farthest rule (ops/kmeans.py)
+                # uses the global-farthest rule (ops/kmeans.py)
                 repair=(
                     "opencv_split"
                     if cfg.reference_compat
@@ -326,36 +217,12 @@ class Encoder:
             # blockwise DCT on float BGR channels of the anchor frames
             # (libs/encoder.cpp:638-640; channel order = cv::split order),
             # emitted in merged wire layout (T, nby, nbx, C*bh*bw) so host
-            # serialization is a memcpy. The Pallas kernel pins the
-            # layouts end to end (ops/dct_pallas.py); the einsum path is
-            # the identical-algorithm fallback (ops/dct.py)
-            if self._use_jsplit:
-                # planes arrive column-pitched (3, bw, T+1, H, nbx);
-                # H is UNPADDED when _dct_pad_skip (pad block rows are
-                # synthesized as zero coefficients in-kernel)
-                coeffs = dct2_jsplit_to_wire_pallas(
-                    planes,
-                    cfg.transform_block_w,
-                    cfg.transform_block_h,
-                    frame_offset=1,
-                    padded_h=self.padded_h,
-                )
-            elif pallas_wire_dct_supported(
-                3, self.padded_h, self.padded_w,
-                cfg.transform_block_w, cfg.transform_block_h,
-            ):
-                coeffs = dct2_planes_to_wire_pallas(
-                    planes,
-                    cfg.transform_block_w,
-                    cfg.transform_block_h,
-                    frame_offset=1,
-                )
-            else:
-                coeffs = dct2_planes_to_wire(
-                    planes[:, 1:],
-                    cfg.transform_block_w,
-                    cfg.transform_block_h,
-                )
+            # serialization is a memcpy (ops/dct.py)
+            coeffs = dct2_planes_to_wire(
+                planes[:, 1:],
+                cfg.transform_block_w,
+                cfg.transform_block_h,
+            )
 
             out = {
                 "coeffs": coeffs,
@@ -380,66 +247,14 @@ class Encoder:
         """Unpack + pad + luma + pyramid for ``(N, H, W*3)`` packed frames.
 
         The host ships frames as the free reinterpretation ``(N, H, W*3)``
-        of interleaved BGR rows: a trailing channel axis of 3 would be
-        tile-padded to 128 TPU lanes (43x physical memory), so the packed
-        form is de-interleaved on device with three strided lane slices
-        into dense ``(3, N, PH, PW)`` channel planes that every downstream
-        stage (luma, pyramid, DCT) reads at full bandwidth.
+        of interleaved BGR rows; they are split on device into dense
+        ``(3, N, PH, PW)`` channel planes that every downstream stage
+        (luma, pyramid, DCT) reads.
         """
         n, h, w3 = packed_bgr.shape
-        w = w3 // 3
-        if self._use_jsplit:
-            tbw = self.cfg.transform_block_w
-            p = interleave.deinterleave_rows_jsplit(
-                packed_bgr, 3, tbw
-            )  # (3, tbw, N, H, nbx) column-pitched subplanes
-            if not self._dct_pad_skip and self.excess_h:
-                p = jnp.pad(
-                    p,
-                    ((0, 0), (0, 0), (0, 0), (0, self.excess_h), (0, 0)),
-                )  # bottom zero rows = pad_frame on every subplane
-            y8 = bgr_planes_to_y(p[0], p[1], p[2])  # (tbw, N, ?, nbx)
-            if self._use_pitched_motion:
-                # the spatial luma plane NEVER materializes: pyramid
-                # level 1 comes from the pitched-input pyrDown (its
-                # filter matmul absorbs the un-pitch permutation,
-                # ops/pyramid_pallas.py) and the base-level refine
-                # consumes y8 through motion_pallas' pitched cell
-                # builder — deleting the ~0.6 ms/batch respatialize
-                # transpose plus the refine's ~0.9 ms plane pad + lane
-                # transpose at 1080p, bit-identically
-                from svc_tpu.ops.pyramid_pallas import (
-                    pyr_down_mxu_pitched_pallas,
-                )
-
-                l1 = pyr_down_mxu_pitched_pallas(y8)
-                levels = [y8] + build_pyramid(
-                    l1, self.cfg.pyr_lvl_count - 1
-                )
-                return p, tuple(levels)
-            # respatialize luma for the pyramid/motion stages: moving the
-            # column phase j to the minor axis makes col = bx*tbw + j
-            y = y8.transpose(1, 2, 3, 0).reshape(
-                n, y8.shape[2], self.padded_w
-            )
-            if y.shape[1] != self.padded_h:
-                # pad-skip mode: only LUMA materializes the frame's zero
-                # pad band (Y of the zero pad is 0, bit-identical to
-                # padding before the convert)
-                y = jnp.pad(y, ((0, 0), (0, self.excess_h), (0, 0)))
-            return p, tuple(build_pyramid(y, self.cfg.pyr_lvl_count))
-        if interleave.lane_aligned(w):
-            # selection-matmul de-interleave (ops/interleave.py): the
-            # stride-3 lane slices lower to scalar gathers plus relayout
-            # copies (~2 ms of the 15 ms 1080p batch); the exact bf16
-            # selector einsum rides the MXU instead, bit-exactly.
-            planes = interleave.deinterleave_rows(
-                packed_bgr, 3
-            )  # (3, N, H, W): B, G, R
-        else:
-            planes = jnp.stack(
-                [packed_bgr[:, :, c::3] for c in range(3)]
-            )  # (3, N, H, W): B, G, R
+        planes = jnp.moveaxis(
+            packed_bgr.reshape(n, h, w3 // 3, 3), -1, 0
+        )  # (3, N, H, W): B, G, R
         planes = pad_frame(planes, self.padded_w, self.padded_h)
         y = bgr_planes_to_y(planes[0], planes[1], planes[2])
         return planes, tuple(build_pyramid(y, self.cfg.pyr_lvl_count))
@@ -484,14 +299,10 @@ class Encoder:
         )
 
     def stage_frames(self, packed: np.ndarray):
-        """Transfer host packed frames into the program's own device
-        layout in one H2D copy (benchmarks that stage inputs ahead of the
-        timing loop should use this — a bare ``device_put`` can pick a
-        different layout and force a full on-device relayout per batch,
-        measured 1.3 ms at 4K)."""
-        if isinstance(self._encode_batch, PinnedDispatch):
-            return self._encode_batch.stage(0, packed)
-        return jnp.asarray(packed)
+        """Transfer host packed ``(T+1, H, W*3)`` frames to the device —
+        the staged half of the protocol ``stream_encode`` uses to overlap
+        H2D with compute."""
+        return jax.device_put(packed)
 
     def _keys(self, start_index: int, count: int) -> jnp.ndarray:
         base = jax.random.key(self.cfg.seed)
@@ -512,10 +323,7 @@ class Encoder:
         """Run the jitted pipeline on ``(T+1, H, W, 3)`` uint8 frames."""
         n, h, w, c = frames_bgr.shape
         keys = self._keys(first_anchor_index, n - 1)
-        # ship the free (N, H, W*3) reinterpretation: a trailing channel
-        # axis would be tile-padded 3->128 lanes on device (see
-        # preprocess). The HOST array goes straight to the jit so the
-        # H2D transfer writes the pinned layout directly
+        # ship the free (N, H, W*3) reinterpretation (see preprocess)
         packed = np.ascontiguousarray(frames_bgr).reshape(n, h, w * c)
         return self._encode_batch(packed, keys)
 

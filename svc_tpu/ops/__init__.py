@@ -1,6 +1,6 @@
-"""Device compute kernels (JAX/XLA/Pallas).
+"""Device compute ops (plain JAX, compiled by XLA).
 
-TPU-native replacements for the reference's L2 algorithm layer
+Batched, jit-compatible replacements for the reference's L2 algorithm layer
 (libs/motion.cpp) and for the OpenCV kernels it calls from the pipeline
 layer (SURVEY.md §2 rows 22-28): color conversion, Gaussian pyramid,
 padding, morphology, k-means, connected components, DCT/IDCT, resize.

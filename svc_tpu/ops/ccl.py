@@ -32,8 +32,8 @@ def connected_components_batched(
 
     All masks propagate under ONE ``while_loop`` (min-label propagation with
     pointer jumping, so path lengths halve each sweep) — the batch dimension
-    is how this stays TPU-shaped: the encoder labels every k-means cluster
-    of every frame in a batch at once instead of looping small grids.
+    keeps the device busy: the encoder labels every k-means cluster of
+    every frame in a batch at once instead of looping small grids.
 
     Returns ``(labels, counts)``: labels int32, 0 = background, 1..n per
     mask in raster order of each component's first pixel; ``counts = n + 1``
@@ -170,8 +170,7 @@ def block_types_from_clusters(
     same-cluster-connected region, so propagation over the cluster image
     with same-value connectivity computes all k mask labelings at once.
     This is ~k times less sweep traffic than running the batched mask CCL
-    on k separated masks (measured: the CCL stage dropped from ~18 ms to
-    ~2 ms per 16-frame 1080p batch).
+    on k separated masks.
 
     Args:
       cluster_labels: ``(B, H, W)`` int32, values in ``[0, k)`` for
@@ -277,39 +276,10 @@ def block_types_from_clusters(
         n_c = rank_c[:, -1:]
         counts.append(n_c + 1)
         offset = offset + n_c + 1
-    # every member reads its root's rank: ranked[labels[i]]. A
-    # take_along_axis here lowers to a scalar TPU gather (measured 1.3 ms
-    # of the 18 ms 1080p encode step), so the lookup is reformulated as an
-    # exact two-level one-hot contraction on the MXU: split the root index
-    # into (hi, lo) = (j >> 7, j & 127), fold the rank table to
-    # (hi_size, 128), then
-    #     P[jl, i]    = sum_jh table[jh, jl] * (labels_hi[i] == jh)
-    #     btypes[i]   = sum_jl P[jl, i] * (labels_lo[i] == jl)
-    # — one (128, hi_size) x (hi_size, N) dot per frame plus a masked
-    # sublane reduction, all lane-major in N (~0.2 ms). Products are
-    # exact: ranks < 2^24 and HIGHEST splits the f32 operands losslessly.
-    hi_size = (n + 1 + 127) // 128
-    table = jnp.concatenate(
-        [ranked, jnp.zeros((b, hi_size * 128 - n), jnp.int32)], axis=1
-    ).reshape(b, hi_size, 128)
-    lab32 = labels.astype(jnp.int32)
-    onehot_hi = (
-        (lab32 >> 7)[:, None, :]
-        == jnp.arange(hi_size, dtype=jnp.int32)[None, :, None]
-    ).astype(jnp.float32)  # (b, hi, n)
-    p = jax.lax.dot_general(
-        table.astype(jnp.float32),
-        onehot_hi,
-        (((1,), (1,)), ((0,), (0,))),
-        precision=jax.lax.Precision.HIGHEST,
-    )  # (b, 128, n)
-    onehot_lo = (
-        (lab32 & 127)[:, None, :]
-        == jnp.arange(128, dtype=jnp.int32)[None, :, None]
-    )
-    btypes = jnp.sum(
-        jnp.where(onehot_lo, p, 0.0), axis=1
-    ).astype(jnp.int32)  # (b, n)
+    # every member reads its root's rank: ranked[labels[i]]; background
+    # cells carry the sentinel label n and read the appended 0
+    table = jnp.concatenate([ranked, jnp.zeros((b, 1), jnp.int32)], axis=1)
+    btypes = jnp.take_along_axis(table, labels.astype(jnp.int32), axis=1)
     btypes = jnp.where(valid.reshape(b, n), btypes, 0)
     return (
         btypes.reshape(b, h, w),

@@ -34,8 +34,8 @@ def bgr_planes_to_y(
 ) -> jnp.ndarray:
     """OpenCV-exact luma from separate uint8 channel planes.
 
-    Same arithmetic as :func:`bgr_to_y`; the plane form keeps every operand
-    dense on TPU (a trailing channel axis of 3 tile-pads to 128 lanes).
+    Same arithmetic as :func:`bgr_to_y`, on the ``(3, ...)`` channel
+    planes the encoder's other stages read.
     """
     y = (
         r.astype(jnp.int32) * _R2Y

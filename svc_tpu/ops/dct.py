@@ -1,4 +1,4 @@
-"""Blockwise 2-D DCT-II / DCT-III as MXU matrix products.
+"""Blockwise 2-D DCT-II / DCT-III as matrix products.
 
 The encoder applies an orthonormal 2-D DCT to every ``transform_block`` of
 every float RGB channel (reference: libs/encoder.cpp:323-339 driving
@@ -12,11 +12,12 @@ type-II DCT, so each block transform is exactly
 with ``D_n[k, j] = s_k * cos(pi * (2j + 1) * k / (2n))``,
 ``s_0 = sqrt(1/n)``, ``s_k = sqrt(2/n)``.
 
-Instead of looping ROIs, whole frames are transformed at once: the rows of
-all blocks in a frame-width strip form one big matmul against the small DCT
-matrix — batched, MXU-shaped work. float32 throughout (parity with
-OpenCV's float path is to ~1e-3 absolute on 0..255 inputs; bit-exactness is
-not defined across differing float summation orders).
+Instead of looping ROIs, whole frames are transformed at once: the blocks
+of a batch form one big matmul against a small transform matrix. float32
+throughout, every contraction at ``Precision.HIGHEST`` so
+that no backend lowers it to a reduced-precision (bf16/TF32) product
+(parity with OpenCV's float path is to ~1e-3 absolute on 0..255 inputs;
+bit-exactness is not defined across differing float summation orders).
 """
 
 from __future__ import annotations
@@ -28,15 +29,44 @@ import jax.numpy as jnp
 import numpy as np
 
 
-@functools.lru_cache(maxsize=None)
-def dct_matrix(n: int) -> np.ndarray:
-    """Orthonormal DCT-II matrix, float32."""
+def _dct_matrix64(n: int) -> np.ndarray:
     k = np.arange(n)[:, None].astype(np.float64)
     j = np.arange(n)[None, :].astype(np.float64)
     d = np.cos(np.pi * (2 * j + 1) * k / (2 * n))
     d *= np.sqrt(2.0 / n)
     d[0] *= np.sqrt(0.5)
-    return d.astype(np.float32)
+    return d
+
+
+@functools.lru_cache(maxsize=None)
+def dct_matrix(n: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix, float32."""
+    return _dct_matrix64(n).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_split_weights(block_h: int, block_w: int):
+    """The 2-D forward transform of a ``bh*bw`` block as one float32
+    ``(bh*bw, 2*bh*bw)`` matrix ``[hi | lo]`` whose two halves sum to the
+    float64 Kronecker matrix ``D_h (x) D_w`` (rows ``(i, j)``, columns
+    ``(k, l)``), and the number of fraction bits of ``hi``.
+
+    ``hi`` is ``D_h (x) D_w`` rounded to a multiple of ``2**-frac``, with
+    ``frac`` chosen so that every partial sum of ``x @ hi`` for uint8
+    ``x`` is a multiple of ``2**-frac`` below ``2**(24 - frac)``: it fits
+    the float32 significand, so that contraction is exact in any
+    summation order. ``lo`` (``|lo| <= 2**-(frac+1)``) adds terms whose
+    sum is below 2.1 for 8x8 blocks; its float32 rounding is ~1e-7. The
+    coefficient ``hi_sum + lo_sum`` is therefore within half an ulp (plus
+    ~1e-7) of the exact transform on every backend, and two backends
+    differ by at most one ulp.
+    """
+    d2 = np.kron(_dct_matrix64(block_h), _dct_matrix64(block_w))
+    bound = 255.0 * np.abs(d2).sum(axis=1).max()
+    frac = 24 - (int(np.ceil(np.log2(bound))) + 1)
+    hi = np.round(d2 * 2.0**frac) / 2.0**frac
+    lo = d2 - hi
+    return np.concatenate([hi.T, lo.T], axis=1).astype(np.float32), frac
 
 
 def _to_blocks(frame: jnp.ndarray, bw: int, bh: int) -> jnp.ndarray:
@@ -75,86 +105,39 @@ def dct2_planes_to_wire(
     per-channel coefficient rows — libs/encoder.cpp:243-265), so producing
     this layout on device turns host serialization into a plain memcpy.
 
-    The trailing C*bh*bw axis is deliberately MERGED: a trailing ``(bh,bw)``
-    = (8,8) pair would be tiled to (8,128) TPU lanes — a 16x physical
-    blowup on the 400 MB/batch coefficient write at 1080p. Merged, the
-    trailing axis is 192 (pad to 256, 1.33x). Channel-plane input likewise
-    avoids the 43x tiling blowup of trailing C=3 interleaved frames.
-
-    Layout strategy (the third iteration — each measured in-context on the
-    22 ms 1080p encode step):
-
-    * a 3-factor einsum over ``(..., bh, nbx, bw)`` blocks lowered to a
-      reshape + two tile-layout copies + an output transpose (6.6 ms);
-    * pre-transposing uint8 into wire block order for square wire-axis
-      matmuls made XLA emit two even slower uint8 tile copies (7.9 ms);
-    * this version: one cheap block-pitch lane transpose per plane
-      (``(T*H, nbx, bw) -> (T*H, bw, nbx)`` — the same swapaxes XLA
-      compiles to a fast tiled copy in ops/motion_pallas.py), giving
-      ``(C, T, nby, bh, bw, nbx)`` with the block-column axis on lanes.
-      Both DCT stages are then contractions over the small leading block
-      axes — the MXU performs the lane->wire transpose implicitly in the
-      final contraction, and its output IS the wire layout (~2 ms).
-
-    The two chained 8-term contractions keep the float32 summation
-    structure of the row/column DCT factorization that the golden-parity
-    coefficient gate is baselined against (BASELINE.md: measured 1.2e-4
-    vs ``cv::dct``; a fused single 64-term contraction doubles that).
+    Each block is one ``bh*bw``-term contraction against the split
+    Kronecker matrix of :func:`fwd_split_weights`, so the result does not
+    depend on the order in which a backend sums (float32 rounding of a
+    row/column factorization differs by up to 3 ulp between a GPU and a
+    CPU). Both halves come out of one dot, each output column its own sum.
     """
     c, t, h, w = planes.shape
     nby, nbx = h // block_h, w // block_w
-    dh = jnp.asarray(dct_matrix(block_h))
-    dw = jnp.asarray(dct_matrix(block_w))
-    # block-pitch the columns: (C,T,H,W) -> (C,T,nby,bh,bw,nbx)
-    p = planes.reshape(c, t, h, nbx, block_w)
-    p = jnp.swapaxes(p, -1, -2)
-    p = p.reshape(c, t, nby, block_h, block_w, nbx).astype(jnp.float32)
-    # rows: contract i -> k (both leading small axes; no relayout)
-    a = jnp.einsum(
-        "ki,ctyijx->ctykjx", dh, p,
+    n = block_h * block_w
+    weights, _ = fwd_split_weights(block_h, block_w)
+    blocks = planes.reshape(c, t, nby, block_h, nbx, block_w)
+    blocks = jnp.transpose(blocks, (1, 2, 4, 0, 3, 5))
+    blocks = blocks.reshape(t, nby, nbx, c, n).astype(jnp.float32)
+    z = jax.lax.dot_general(
+        blocks, jnp.asarray(weights), (((4,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,
     )
-    # columns: contract j -> l; the MXU dot emits (..., nbx, bh, bw) with
-    # nbx back on sublanes — the wire layout — without a transpose op
-    out = jnp.einsum(
-        "lj,ctykjx->tyxckl", dw, a,
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    return out.reshape(t, nby, nbx, c * block_h * block_w)
-
-
-def dct2_packed_to_wire(
-    packed: jnp.ndarray, channels: int, block_w: int, block_h: int
-) -> jnp.ndarray:
-    """Forward blockwise DCT of packed interleaved ``(T, H, W*C)`` uint8
-    frames into the wire layout ``(T, nby, nbx, C*bh*bw)``.
-
-    Convenience wrapper: de-interleaves with ``channels`` strided lane
-    slices (the one interleaved-byte access pattern XLA compiles cheaply)
-    and runs :func:`dct2_planes_to_wire`. The encoder calls the planes
-    variant directly — its preprocess stage already built the planes.
-    """
-    t, h, wc = packed.shape
-    planes = jnp.stack([packed[:, :, c::channels] for c in range(channels)])
-    return dct2_planes_to_wire(planes, block_w, block_h)
+    out = z[..., :n] + z[..., n:]
+    return out.reshape(t, nby, nbx, c * n)
 
 
 @functools.lru_cache(maxsize=None)
 def _inv_stage_weights(channels: int, block_h: int, block_w: int):
     """The two ``(C*n, C*n)`` block-structured inverse-stage matrices.
 
-    Operating in WIRE-LANE space: stage 1 applies ``dh`` over the row
+    Operating in wire-lane space: stage 1 applies ``dh`` over the row
     index (``(c,k,l) -> (c,i,l)``), stage 2 applies ``dw`` over the
-    column index (``(c,i,l) -> (c,i,j)``). Keeping the whole inverse in
-    the wire layout means the only relayout in the decode path is ONE
-    well-tiled transpose of the pixel-space result — the small-axis
-    einsum formulation made XLA emit two ~5 ms relayout copies per
-    16-frame 1080p batch around the contraction (42% of decode time).
-    Each output element still sums exactly ``block_h`` (resp.
-    ``block_w``) terms, the same row/column factorization the golden
-    decoder gate is baselined against.
+    column index (``(c,i,l) -> (c,i,j)``), so the whole inverse runs on
+    the wire layout and the only relayout is one transpose of the
+    pixel-space result. Each output element sums exactly ``block_h``
+    (resp. ``block_w``) nonzero terms, the same row/column factorization
+    the golden decoder gate is baselined against.
     """
     dh = dct_matrix(block_h)
     dw = dct_matrix(block_w)
@@ -181,10 +164,7 @@ def idct2_wire_to_planes(
     ``(C, H, W)`` float32 channel planes.
 
     Wire-lane-space stage dots (see :func:`_inv_stage_weights`) followed
-    by a single reshape+transpose into planes. The plane output keeps the
-    TPU lane axis wide (W) — a channel-last variant tile-pads its
-    trailing C=3 axis to 128 lanes, which made the decoder spend most of
-    its time in relayout copies.
+    by a single reshape+transpose into planes.
     """
     nby, nbx, cn = blocks.shape
     n = block_h * block_w
@@ -203,50 +183,6 @@ def idct2_wire_to_planes(
     z = z.reshape(nby, nbx, channels, block_h, block_w)
     out = jnp.transpose(z, (2, 0, 3, 1, 4))  # (C, nby, bh, nbx, bw)
     return out.reshape(channels, nby * block_h, nbx * block_w)
-
-
-def idct2_wire_to_planes_pitched(
-    blocks: jnp.ndarray, channels: int, block_h: int, block_w: int
-):
-    """Inverse blockwise DCT into COLUMN-PITCHED planes.
-
-    Returns ``(planes, col_map)`` where ``planes`` is ``(C, PH, bw,
-    nbx)`` float32 with storage position ``(j, x)`` holding spatial
-    column ``x*bw + j``, and ``col_map`` is the int32 ``(2, W)`` table of
-    per-spatial-column ``(j, x)`` pairs (kept as two separate axes — the
-    merged ``bw*nbx`` column is a full relayout copy under TPU tiling).
-    The spatial layout's transpose lands on a trailing
-    ``(nbx, bw)`` f32 intermediate whose ``bw``-wide lane axis tile-pads
-    16x (measured ~10 ms of relayout per 16-frame 1080p decode batch);
-    the pitched permutation ``(c, nby, bh, bw, nbx)`` tiles exactly
-    (8 sublanes x nbx lanes), so the single transpose runs at memory
-    bandwidth. Downstream consumers remap column indices through
-    ``col_map`` (see ``resize_bilinear``'s ``col_map`` argument) — the
-    gathered values, and therefore all results, are bit-identical to the
-    spatial-layout path.
-    """
-    nby, nbx, cn = blocks.shape
-    m1, m2 = _inv_stage_weights(channels, block_h, block_w)
-    flat = blocks.reshape(nby * nbx, cn)
-    a = jax.lax.dot_general(
-        flat, jnp.asarray(m1), (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    z = jax.lax.dot_general(
-        a, jnp.asarray(m2), (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    z = z.reshape(nby, nbx, channels, block_h, block_w)
-    out = jnp.transpose(z, (2, 0, 3, 4, 1))  # (C, nby, bh, bw, nbx)
-    # keep the (bw, nbx) pitch as separate axes: merging them is a full
-    # relayout copy under TPU tiling, while the leading (nby, bh) merge
-    # is free — consumers gather columns through the (j, x) pair
-    planes = out.reshape(channels, nby * block_h, block_w, nbx)
-    cols = np.arange(nbx * block_w, dtype=np.int32)
-    col_map = np.stack([cols % block_w, cols // block_w])  # (2, W): j, x
-    return planes, col_map
 
 
 def idct2_blockwise(frame: jnp.ndarray, block_w: int, block_h: int) -> jnp.ndarray:

@@ -6,15 +6,15 @@ jitted, static-shape implementation:
 
 * k-means++ (D^2-weighted) seeding via inverse-CDF sampling under an
   explicit PRNG key,
-* Lloyd iterations as one-hot matmuls (MXU-shaped assignment + update),
+* Lloyd iterations as one-hot matmuls (assignment + update),
 * OpenCV's termination rule — stop when the squared center shift drops to
   ``epsilon**2`` or ``max_iter`` is reached (TermCriteria COUNT|EPS,
   libs/encoder.cpp:572-575) — realized as a fixed-trip loop with frozen
   updates after convergence (static shapes for jit),
 * empty-cluster repair, two rules: the production default re-seeds an
   empty cluster to the globally farthest point from its assigned center
-  (one masked argmax, no per-cluster passes — TPU-cheap, divergence from
-  OpenCV compactness-bounded in tests); ``repair="opencv_split"``
+  (one masked argmax, no per-cluster passes; divergence from OpenCV
+  compactness-bounded in tests); ``repair="opencv_split"``
   replicates cv::kmeans exactly — the empty cluster takes the farthest
   member of the biggest cluster (used under ``reference_compat``),
 * multiple attempts scored by compactness (sum of squared distances), best
@@ -27,14 +27,10 @@ size and a boolean mask marks real points. Invalid points get label -1.
 Determinism: the reference inherits OpenCV's RNG (quirk Q7); here seeding
 takes an explicit PRNG key.
 
-TPU layout note: every per-point tensor keeps the POINT axis on the lane
-dimension — features live as ``(D, N)``, labels/distances as ``(N,)``, the
-assignment one-hot as ``(k, N)`` — because a ``(N, k)`` or ``(N, D)``
-tensor pads its trailing axis to 128 lanes (13-32x memory blowup for
-k=10/D=4), and Lloyd re-materializes those tensors every iteration. The
-lane-major formulation cut the measured 1080p k-means stage from ~50 ms to
-a few ms per 16-frame batch. The centers update is one
-``(D,N)x(k,N) -> (D,k)`` dot_general over the N lanes (HIGHEST precision:
+Layout: every per-point tensor keeps the POINT axis minor — features
+live as ``(D, N)``, labels/distances as ``(N,)``, the assignment one-hot
+as ``(k, N)`` — so Lloyd never transposes. The centers update is one
+``(D,N)x(k,N) -> (D,k)`` dot_general over the N axis (HIGHEST precision:
 exact for the integer-valued motion features).
 """
 
@@ -54,21 +50,18 @@ def _plus_plus_init(
 ) -> jnp.ndarray:
     """k-means++ seeding: D^2-weighted sampling over valid points.
 
-    ``xt`` is ``(D, N)`` (points on lanes); returns centers ``(k, D)``.
+    ``xt`` is ``(D, N)`` (points minor); returns centers ``(k, D)``.
 
     Sampling is Gumbel-max: with per-point gumbels ``g``,
     ``argmax(log w + g)`` is an exact draw from the categorical
     distribution proportional to ``w``. All ``(k, N)`` gumbels are
     generated in one pass up front, so each of the k sequential picks is
-    a single VPU compare/argmax pass — unlike the earlier inverse-CDF
-    pick, whose per-pick cumsum lowered to a padded 128-wide
-    reduce-window plus a lax.fori_loop (measured 2.2 ms of the 18 ms
-    1080p encode step; this version profiles under 0.3 ms). The unrolled
-    static-k loop also removes the while-op overhead. RNG stream choice
+    a single elementwise compare/argmax pass with no per-pick cumsum. The
+    unrolled static-k loop also avoids a while op. RNG stream choice
     is already a documented divergence from OpenCV (quirk Q7).
     """
     n = xt.shape[1]
-    # gumbels in (k, N): k rides sublanes (pads 10->16, not 10->128)
+    # gumbels in (k, N): points minor, like every per-point tensor
     u = jax.random.uniform(
         key, (k, n), dtype=jnp.float32, minval=1e-12, maxval=1.0
     )
@@ -101,11 +94,10 @@ def _plus_plus_init(
 
 
 def _assign(xt: jnp.ndarray, centers: jnp.ndarray, mask: jnp.ndarray):
-    """First-wins argmin assignment with the k axis on TPU sublanes.
+    """First-wins argmin assignment over the k axis.
 
-    One fused ``(k, N)`` distance tensor (k pads 10 -> 16 sublanes — dense,
-    unlike a trailing (N, k) layout which would pad k to 128 lanes) and a
-    sublane argmin; ``jnp.argmin`` breaks ties toward the lowest index =
+    One fused ``(k, N)`` distance tensor and an argmin over its leading
+    axis; ``jnp.argmin`` breaks ties toward the lowest index =
     OpenCV's first-wins update rule.
     """
     d2 = jnp.sum(
@@ -180,15 +172,16 @@ def _lloyd_attempt(
     def iteration(carry, _):
         centers, done = carry
         labels, point_d2 = _assign(xt, centers, mask)
-        # (k, N) one-hot: k rides sublanes (padded 10->16, not 10->128)
+        # (k, N) one-hot, points minor
         onehot_t = (
             labels[None, :] == jnp.arange(k, dtype=jnp.int32)[:, None]
         ).astype(xt.dtype) * maskf[None, :]
         counts = jnp.sum(onehot_t, axis=1)
-        # centers update: one (D,N)x(k,N) -> (D,k) contraction over lanes;
-        # HIGHEST keeps f32 operands un-truncated (the default would cast
-        # to bf16 — still exact for integer-valued motion features, but the
-        # op is tiny so pay for generality)
+        # centers update: one (D,N)x(k,N) -> (D,k) contraction over N;
+        # HIGHEST keeps f32 operands un-truncated (a default-precision f32
+        # dot may run on bf16 or TF32 operands — still exact for small
+        # integer motion features, but the op is tiny so pay for
+        # generality)
         sums = jax.lax.dot_general(
             xt,
             onehot_t,
@@ -290,7 +283,7 @@ def kmeans_t(
     features dimension-major avoid a device transpose per call).
 
     Args:
-      features_t: ``(D, N)`` float32, points on the lane axis.
+      features_t: ``(D, N)`` float32, points on the minor axis.
       mask: ``(N,)`` bool validity (foreground blocks).
       k: cluster count (static; the caller mirrors the reference's
         ``min(cluster_count, fg_count)`` clamp, libs/encoder.cpp:557-559).
@@ -300,41 +293,6 @@ def kmeans_t(
       ``[0, k)`` for valid rows and -1 elsewhere.
     """
     keys = jax.random.split(key, attempts)
-
-    from svc_tpu.ops.kmeans_pallas import (
-        lloyd_pallas,
-        lloyd_pallas_supported,
-    )
-
-    d, n = features_t.shape
-    # the fused Lloyd kernel implements the production repair rule only;
-    # opencv_split (reference-compat parity) runs the XLA path
-    if repair == "global_farthest" and lloyd_pallas_supported(n, k, d):
-        # seeding stays here (one pass, needs cumsum); all Lloyd
-        # iterations of every attempt run in one VMEM-resident kernel
-        centers0 = jax.vmap(
-            lambda kk: _plus_plus_init(kk, features_t, mask, k)
-        )(keys)  # (A, k, d)
-        init = (
-            jnp.zeros((attempts, 16, 128), jnp.float32)
-            .at[:, :k, :d]
-            .set(centers0)
-        )
-        x_aug = (
-            jnp.zeros((8, n), jnp.float32)
-            .at[:d]
-            .set(features_t)
-            .at[d]
-            .set(1.0)
-        )
-        lab_a, cen_a, compact_a = lloyd_pallas(
-            x_aug, mask.astype(jnp.float32)[None], init,
-            k, d, max_iter, float(epsilon),
-        )
-        best = jnp.argmin(compact_a)
-        labels = jnp.where(mask, lab_a[best], -1)
-        return labels.astype(jnp.int32), cen_a[best, :k, :d], compact_a[best]
-
     labels_a, centers_a, compact_a = jax.vmap(
         lambda kk: _lloyd_attempt(
             kk, features_t, mask, k, max_iter, float(epsilon),
@@ -361,7 +319,7 @@ def kmeans_t_frames(
     repair: str = "global_farthest",
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Frame-batched :func:`kmeans_t`: cluster every frame of an encode
-    batch in ONE fused kernel invocation.
+    batch in one call.
 
     Args:
       features_t: ``(F, D, N)`` float32, one feature set per frame.
@@ -371,101 +329,14 @@ def kmeans_t_frames(
         the per-frame path bit for bit).
 
     Returns ``(labels (F, N), centers (F, k, D), compactness (F,))``.
-    On backends/shapes outside the batched kernel's gate this falls back
-    to a vmap of the per-frame path (identical semantics).
     """
-    from svc_tpu.ops.kmeans_pallas import (
-        _KPAD,
-        lloyd_frame_group,
-        lloyd_pallas_batched,
-    )
-
-    f, d, n = features_t.shape
-    grp = lloyd_frame_group(f, n, k, d)
-    if not grp or repair != "global_farthest":
-        return jax.vmap(
-            lambda ft, mk, kk: kmeans_t(
-                ft, mk, k, kk,
-                attempts=attempts, max_iter=max_iter, epsilon=epsilon,
-                repair=repair,
-            )
-        )(features_t, mask, keys)
-
-    keys_a = jax.vmap(lambda kk: jax.random.split(kk, attempts))(
-        keys
-    )  # (F, A)
-    centers0 = jax.vmap(
-        lambda ft, mk, ks: jax.vmap(
-            lambda kk: _plus_plus_init(kk, ft, mk, k)
-        )(ks)
-    )(features_t, mask, keys_a)  # (F, A, k, d)
-    init = (
-        jnp.zeros((attempts, f, 16, 128), jnp.float32)
-        .at[:, :, :k, :d]
-        .set(jnp.swapaxes(centers0, 0, 1))
-    )
-    x_aug = (
-        jnp.zeros((f, 8, n), jnp.float32)
-        .at[:, :d]
-        .set(features_t)
-        .at[:, d]
-        .set(1.0)
-    )
-    mask_f = mask.astype(jnp.float32)[:, None, :]
-    # frame groups sized to the kernel's VMEM gate (one invocation per
-    # group; 1080p's 16-frame batch runs as two 8-frame groups). Frame
-    # counts that are not multiples of the group run a smaller tail
-    # group (>= 2 frames; a single leftover frame takes the per-frame
-    # kernel) instead of silently falling back to the slow vmap path.
-    parts = []
-    s = 0
-    while s < f:
-        g_sz = min(grp, f - s)
-        if g_sz >= 2:
-            parts.append(
-                lloyd_pallas_batched(
-                    x_aug[s : s + g_sz],
-                    mask_f[s : s + g_sz],
-                    init[:, s : s + g_sz],
-                    k, d, max_iter, float(epsilon),
-                )
-            )
-        else:
-            lab1, cen1, cmp1 = kmeans_t(
-                features_t[s], mask[s], k, keys[s],
-                attempts=attempts, max_iter=max_iter, epsilon=epsilon,
-            )
-            # match the batched kernel's (A, F, ...) part shapes and
-            # dtypes (labels stay int32; center pads come from _KPAD):
-            # the best attempt is already selected, so replicate it per
-            # attempt slot with equal compactness (argmin picks slot 0)
-            parts.append(
-                (
-                    jnp.broadcast_to(
-                        jnp.where(mask[s], lab1, 0)[None, None, :],
-                        (attempts, 1, n),
-                    ),
-                    jnp.broadcast_to(
-                        jnp.zeros((_KPAD, 128), jnp.float32)
-                        .at[:k, :d]
-                        .set(cen1)[None, None],
-                        (attempts, 1, _KPAD, 128),
-                    ),
-                    jnp.broadcast_to(cmp1[None, None], (attempts, 1)),
-                )
-            )
-        s += g_sz
-    lab_a = jnp.concatenate([p[0] for p in parts], axis=1)
-    cen_a = jnp.concatenate([p[1] for p in parts], axis=1)
-    compact_a = jnp.concatenate([p[2] for p in parts], axis=1)
-    best = jnp.argmin(compact_a, axis=0)  # (F,)
-    lab = jnp.take_along_axis(lab_a, best[None, :, None], axis=0)[0]
-    labels = jnp.where(mask, lab, -1).astype(jnp.int32)
-    centers = jnp.take_along_axis(
-        cen_a, best[None, :, None, None], axis=0
-    )[0][:, :k, :d]
-    compact = jnp.take_along_axis(compact_a, best[None, :], axis=0)[0]
-    return labels, centers, compact
+    return jax.vmap(
+        lambda ft, mk, kk: kmeans_t(
+            ft, mk, k, kk,
+            attempts=attempts, max_iter=max_iter, epsilon=epsilon,
+            repair=repair,
+        )
+    )(features_t, mask, keys)
 
 
 def kmeans(

@@ -5,8 +5,7 @@ with a rectangular-SE morphological close followed by open
 (reference: libs/encoder.cpp:189-190, 524-527 — ``cv::morphologyEx`` with
 ``getStructuringElement(MORPH_RECT, {w, h})``).
 
-Dilation/erosion are windowed max/min — on TPU these are
-``lax.reduce_window`` calls whose padding identity reproduces OpenCV's
+Dilation/erosion are windowed max/min — ``lax.reduce_window`` calls whose padding identity reproduces OpenCV's
 default border behavior (border pixels never constrain the min during
 erosion nor contribute to the max during dilation). The window anchor is
 ``(k // 2)`` like OpenCV's default ``(-1, -1)`` anchor.

@@ -1,4 +1,4 @@
-"""Block-matching motion estimation (EBMA / HBMA), TPU-native.
+"""Block-matching motion estimation (EBMA / HBMA) as batched array ops.
 
 Re-implements the reference's motion layer (libs/motion.cpp) as batched,
 static-shape JAX transforms:
@@ -20,7 +20,7 @@ static-shape JAX transforms:
 Design: instead of the reference's per-block scalar loops with SSE2 MAD
 kernels (``_mm_sad_epu8``, libs/motion.cpp:472-550), every candidate
 displacement is evaluated for *all* blocks at once as a whole-frame absolute
-difference + per-block reduction (VPU-shaped work). Candidates are visited
+difference + per-block reduction. Candidates are visited
 in the reference's raster scan order under ``lax.scan``, carrying exactly
 the sequential update state, which preserves the reference's observable
 semantics bit-for-bit:
@@ -164,14 +164,13 @@ def _sad_table(
 ) -> jnp.ndarray:
     """Dense per-block SADs for every displacement in ``[-radius, radius]^2``.
 
-    The TPU-native core of block matching: instead of gathering each
-    block's candidate windows (irregular, scatter-bound memory access),
-    compute the whole-frame absolute difference for each displacement (a
-    shifted dense subtract — VPU work) and reduce it to per-block sums with
-    0/1 indicator matmuls on the MXU. Arithmetic is exact: absolute
-    differences are <= 255 (exactly representable in bfloat16), the MXU
-    accumulates in float32, and per-block sums stay <= block_area * 255,
-    well under 2**24.
+    The dense core of block matching: instead of gathering each block's
+    candidate windows (irregular memory access), compute the whole-frame
+    absolute difference for each displacement (a shifted dense subtract)
+    and reduce it to per-block sums with 0/1 indicator matmuls. Arithmetic
+    is exact: absolute differences are <= 255 (exactly representable in
+    bfloat16), the products accumulate in float32, and per-block sums
+    stay <= block_area * 255, well under 2**24.
 
     Returns ``((2*radius+1)^2, mfh, mfw)`` float32 SADs (integer-valued) in
     raster displacement order (dy ascending, dx ascending).
@@ -188,7 +187,8 @@ def _sad_table(
             tracked_pad, (r + d[0], r + d[1]), (fh, fw)
         )
         diff = jnp.abs(cand.astype(jnp.int16) - anchor_i)
-        # rows -> block rows on the MXU (bf16 exact for values <= 255)
+        # rows -> block rows (bf16 operands exact for values <= 255,
+        # f32 accumulation)
         part = jnp.einsum(
             "mh,hw->mw",
             row_ind,
@@ -264,8 +264,8 @@ def _refine_select(
     ``(ncand, mfh, mfw)`` in raster offset order.
 
     The candidate axis is a small static count, so the replay is unrolled
-    (one fused pass) instead of a ``lax.scan`` — the scan's per-iteration
-    carry writes cost ~1 ms/level per 16-frame 1080p batch.
+    (one fused pass) instead of a ``lax.scan`` with per-iteration carry
+    writes.
 
     Works unbatched (``(mfh, mfw, 2)`` fields) or batched over leading
     axes (``hbma_stack``): block coordinates broadcast from the right.
@@ -307,14 +307,8 @@ def _spread_cells(
 
     Returns ``(mfh, bh + 2*pad, bw + 2*pad, mfw)`` where cell (i, :, :, j)
     holds the frame region ``[i*bh - pad, i*bh + bh + pad) x
-    [j*bw - pad, ...)``. Built from static slices only — the TPU-friendly
-    substitute for per-block gathers.
-
-    Layout: the BLOCK-COLUMN axis (mfw, e.g. 120 at 1080p/16px) rides the
-    TPU lane dimension. With block columns innermost instead, every
-    candidate window slice would end in a 16-wide axis that tile-pads to
-    128 lanes — an 8x physical blowup on the hottest reads of the whole
-    encoder (measured ~2x end-to-end HBMA cost).
+    [j*bw - pad, ...)``. Built from static slices only, in place of
+    per-block gathers. The block-column axis (mfw) is the minor one.
     """
     ph, pw = plane.shape
     fh, fw = ph - 2 * pad, pw - 2 * pad
@@ -333,7 +327,7 @@ def _spread_cells(
 
     # cols: cw-wide windows at stride bw, assembled from ceil(cw/bw)
     # shifted contiguous reshapes; the parts concatenate on the LAST axis
-    # first so the expensive lane transpose happens ONCE on the combined
+    # first so the minor-axis transpose happens ONCE on the combined
     # tensor instead of once per part (XLA fuses concat into the transpose)
     parts = []
     for c0 in range(0, cw, block_w):
@@ -359,34 +353,6 @@ def _refine_spread(
     pad = bound_in + r
 
     mv_round = jnp.round(mv_field).astype(jnp.int32)
-
-    # fused Pallas path: window select + all candidate SADs VMEM-resident,
-    # one HBM read of the block-pitched plane (bit-exact integer
-    # arithmetic; the XLA select-chain fallback below materializes
-    # overlapping spread cells and re-reads them once per shift)
-    from svc_tpu.ops.motion_pallas import (
-        fused_refine_supported,
-        refine_mads_pallas,
-    )
-
-    if fused_refine_supported(
-        mfh, block_h + 2 * pad, block_w + 2 * pad, mfw, bound_in
-    ):
-        mv_yx = jnp.stack(
-            [mv_round[..., 1][:, None, :], mv_round[..., 0][:, None, :]],
-            axis=1,
-        )  # (mfh, 2, 1, mfw): y then x
-        sads = refine_mads_pallas(
-            tracked, anchor, mv_yx, r, bound_in, block_w, block_h
-        )
-        ncand = (2 * r + 1) ** 2
-        mads = [
-            sads[:, i, :].astype(jnp.float32) / jnp.float32(area)
-            for i in range(ncand)
-        ]
-        return _refine_select(
-            mads, mv_field, min_mad, r, block_w, block_h, fh, fw
-        )
 
     # u8 end to end through the shift passes (half the traffic of i16);
     # widening happens only at the final reduction
@@ -652,29 +618,14 @@ def hbma_stack(
     search_range: int,
     block_w: int,
     block_h: int,
-    base_pitched: "jnp.ndarray | None" = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Hierarchical block matching over a FULL frame-stack pyramid.
 
     Batched form of :func:`hbma` for the encoder's hot path: each level is
     a ``(T+1, h_l, w_l)`` stack where frame ``t`` is tracked against
     anchor ``t+1`` (the reference's pyramid swap, libs/encoder.cpp:
-    661-663). The refinement levels run through ONE stack-wide Pallas
-    program (``refine_mads_stack_pallas``) whose tracked tiles and anchor
-    blocks are views of a shared cell tensor — no tracked/anchor slice
-    copies of the pyramid, no per-frame window prep (both measured
-    hot in the encode profile). Semantics are identical to
-    ``vmap(hbma)`` over the sliced pyramids (asserted in test_motion).
-
-    Args (extension): ``base_pitched`` — the base level as COLUMN-PITCHED
-    luma subplanes ``(tbw, T+1, fh, fw//tbw)`` (the j-split frontend's
-    native luma layout). When given and the pitched refine gate holds,
-    level 0 runs :func:`motion_pallas.refine_mads_stack_pitched_pallas`
-    and the spatial base plane NEVER materializes (deleting the ~1.5
-    ms/batch respatialize + pad + lane-transpose chain at 1080p);
-    ``pyramid_stack[0]`` may then be the pitched array itself — it is
-    only consumed spatially on the fallback path, where it is
-    respatialized on demand. SADs are bit-identical either way.
+    661-663). Semantics are identical to ``vmap(hbma)`` over the sliced
+    pyramids (asserted in test_motion).
 
     Returns ``(mv (T, mfh, mfw, 2), min_mad (T, mfh, mfw))``.
     """
@@ -697,90 +648,18 @@ def hbma_stack(
         )
     )(top[:-1], top[1:])
 
-    from svc_tpu.ops.motion_pallas import (
-        pitched_refine_supported,
-        refine_mads_stack_pallas,
-        refine_mads_stack_pitched_pallas,
-        stack_refine_supported,
-    )
-
     bound = top_range
     for lvl in range(level_count - 2, -1, -1):
         scale = 1 << lvl
         mv = mv * 2.0
         bound_in = 2 * bound
         bw, bh = block_w // scale, block_h // scale
-        r = top_range
-        pitched = base_pitched if lvl == 0 else None
-        if pitched is not None:
-            tbw_p = pitched.shape[0]
-            fh = pitched.shape[2]
-            fw = tbw_p * pitched.shape[3]
-            mfh, mfw = fh // bh, fw // bw
-            if pitched_refine_supported(
-                tbw_p, mfh, mfw, bw, bh, r, bound_in
-            ):
-                area = float(bw * bh)
-                mv_round = jnp.round(mv).astype(jnp.int32)
-                mv_yx = jnp.stack(
-                    [
-                        mv_round[..., 1][:, :, None, :],
-                        mv_round[..., 0][:, :, None, :],
-                    ],
-                    axis=2,
-                )
-                sads = refine_mads_stack_pitched_pallas(
-                    pitched, mv_yx, r, bound_in, bw, bh
-                )
-                ncand = (2 * r + 1) ** 2
-                mads = [
-                    sads[:, :, i, :].astype(jnp.float32)
-                    / jnp.float32(area)
-                    for i in range(ncand)
-                ]
-                mv, min_mad = _refine_select(
-                    mads, mv, min_mad, r, bw, bh, fh, fw
-                )
-                bound = bound_in + top_range
-                continue
-            # gate miss: respatialize on demand and fall through to the
-            # spatial paths below
-            stack = pitched.transpose(1, 2, 3, 0).reshape(
-                pitched.shape[1], fh, fw
+        stack = pyramid_stack[lvl]
+        mv, min_mad = jax.vmap(
+            lambda tr, an, m, mm: _refine_spread(
+                tr, an, top_range, bw, bh, m, mm, bound_in=bound_in
             )
-        else:
-            stack = pyramid_stack[lvl]
-        fh, fw = stack.shape[1:]
-        mfh, mfw = fh // bh, fw // bw
-        if stack_refine_supported(mfh, mfw, bw, bh, r, bound_in):
-            area = float(bw * bh)
-            mv_round = jnp.round(mv).astype(jnp.int32)
-            mv_yx = jnp.stack(
-                [
-                    mv_round[..., 1][:, :, None, :],
-                    mv_round[..., 0][:, :, None, :],
-                ],
-                axis=2,
-            )  # (T, mfh, 2, 1, mfw): y then x
-            sads = refine_mads_stack_pallas(
-                stack, mv_yx, r, bound_in, bw, bh
-            )
-            ncand = (2 * r + 1) ** 2
-            mads = [
-                sads[:, :, i, :].astype(jnp.float32) / jnp.float32(area)
-                for i in range(ncand)
-            ]
-            # _refine_select broadcasts (mfh, 1)/(1, mfw) block coordinates
-            # against the batched (T, mfh, mfw) fields directly
-            mv, min_mad = _refine_select(
-                mads, mv, min_mad, r, bw, bh, fh, fw
-            )
-        else:
-            mv, min_mad = jax.vmap(
-                lambda tr, an, m, mm: _refine_spread(
-                    tr, an, r, bw, bh, m, mm, bound_in=bound_in
-                )
-            )(stack[:-1], stack[1:], mv, min_mad)
+        )(stack[:-1], stack[1:], mv, min_mad)
         bound = bound_in + top_range
     return mv, min_mad
 

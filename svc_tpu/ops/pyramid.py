@@ -8,7 +8,7 @@ and the HBMA search consumes every level (libs/motion.cpp:412-465).
 [1, 4, 6, 4, 1] in each dimension (sum 256), computed in integer arithmetic
 with BORDER_REFLECT_101 and final round-half-up descaling by 8 bits, sampled
 at even coordinates. This implementation reproduces that integer pipeline
-exactly using stride-2 slicing (no data-dependent shapes, VPU-friendly),
+exactly using stride-2 slicing (no data-dependent shapes),
 so pyramid levels — and hence motion fields — can match the C++ reference
 bit-for-bit.
 """
@@ -17,7 +17,6 @@ from __future__ import annotations
 
 from typing import List
 
-import jax
 import jax.numpy as jnp
 
 _TAPS = (1, 4, 6, 4, 1)
@@ -40,25 +39,6 @@ def pyr_down(img: jnp.ndarray) -> jnp.ndarray:
     out_h, out_w = (h + 1) // 2, (w + 1) // 2
     if h % 2 or w % 2:
         return _pyr_down_general(img)
-
-    # fused Pallas kernel on accelerators for batched planes (bit-exact;
-    # gated off on CPU where the interpreter would be slower than XLA)
-    if img.ndim == 3 and jax.default_backend() != "cpu":
-        from svc_tpu.ops.pyramid_pallas import (
-            pallas_pyr_mxu_supported,
-            pallas_pyr_supported,
-            pyr_down_mxu_pallas,
-            pyr_down_pallas,
-        )
-
-        # MXU variant folds the reflect pad + stride-2 column filter into
-        # per-column-tile band matmuls (no XLA-side pad/gather prep —
-        # the VPU path's reflect pad + stride-2 column gathers
-        # scalarized into ~18 ms/batch of copies at 4K level 0)
-        if pallas_pyr_mxu_supported(h, w):
-            return pyr_down_mxu_pallas(img)
-        if pallas_pyr_supported(h, w):
-            return pyr_down_pallas(img)
 
     def filt(x, axis_last: bool):
         # x padded by 2 (reflect-101) along the target axis, even length

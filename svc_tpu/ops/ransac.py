@@ -1,6 +1,6 @@
 """RANSAC global-motion estimation as parallel hypothesis scoring.
 
-TPU-native rebuild of ``EstimateGlobalMotionRansac``
+Data-parallel rebuild of ``EstimateGlobalMotionRansac``
 (reference: libs/motion.cpp:144-266): instead of a sequential loop drawing
 one random subset per iteration, all ``k`` hypotheses are sampled up front
 under an explicit PRNG key and scored against the whole motion field in one
@@ -93,12 +93,11 @@ def _ransac_core(
     subset_sz: int,
     k: int,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Core over SPLIT components ``f0``/``f1`` (each ``(N,)``): a
-    combined (N, 2) field keeps a trailing axis of 2 that TPU tiling
-    pads to 128 lanes — every (k, N, 2) scoring intermediate would be
-    64x physical. Per-component math is lane-major throughout and sums
-    the two squared terms in the same order (``d0^2 + d1^2``), so
-    results are bit-identical to the combined form."""
+    """Core over SPLIT components ``f0``/``f1`` (each ``(N,)``), so no
+    (k, N, 2) scoring intermediate carries a trailing axis of 2. The
+    per-component math sums the two squared terms in the same order
+    (``d0^2 + d1^2``), so results are bit-identical to the combined
+    form."""
     n_points = f0.shape[0]
 
     if subset_sz == 1:
@@ -171,10 +170,8 @@ def estimate_global_motion_ransac(
       motion field's leading shape.
     """
     lead_shape = motion_field.shape[:-1]
-    # split components up front: a flattened (N, 2) field would carry a
-    # trailing axis of 2 through every scoring intermediate (padded to
-    # 128 lanes — 64x physical; the reshape alone measured 0.11 ms per
-    # 1080p batch)
+    # split components up front, so no scoring intermediate carries a
+    # trailing axis of 2
     f0 = motion_field[..., 0].reshape(-1)
     f1 = motion_field[..., 1].reshape(-1)
     n_points = f0.shape[0]

@@ -48,151 +48,35 @@ def bilinear_axis_weights(out_n: int, in_n: int):
     return i0, i1, frac, bool((frac == 0).all())
 
 
-def resize_rows_pitched(
-    img: jnp.ndarray, out_h: int, emit_u8: bool = False,
-    channel_minor: bool = False,
-) -> jnp.ndarray:
-    """Row-only bilinear resample of column-pitched planes
-    ``(C, H, bw, nbx)`` (or a batched ``(T, C, H, bw, nbx)`` stack — pass
-    the stack rather than vmapping: every frame shares the row map, so the
-    kernel runs one fat grid step per (channel, row tile)) to ``out_h``
-    rows — the vertical half of the decoder's display resize, for callers
-    whose column step is a pure gather. ``emit_u8`` fuses the display
-    round/clip (uint8 output, same round-half-even + clamp as the XLA
-    tail) — exact because gathering commutes with per-element rounding.
-    ``channel_minor`` takes/emits the batched ``(T, H, C, bw, nbx)``
-    order (single-gather display tail, models/decoder.py)."""
-    row_axis = -4 if channel_minor else -3
-    h = img.shape[row_axis]
-    y0, y1, fy, y_ident = bilinear_axis_weights(out_h, h)
-
-    def finish(x):
-        if not emit_u8:
-            return x
-        return jnp.clip(jnp.round(x), 0, 255).astype(jnp.uint8)
-
-    def row_gather(idx):
-        if channel_minor:
-            return img[..., idx, :, :, :]
-        return img[..., idx, :, :]
-
-    if y_ident:
-        if out_h == h:
-            # true identity: indexing with an iota array would lower to
-            # a full gather op (measured 3.9 ms/batch at 4K, where the
-            # padded height equals the display height)
-            return finish(img)
-        return finish(row_gather(y0))
-    from svc_tpu.ops.resize_pallas import (
-        resize_rows_pallas,
-        rows_pallas_supported,
-    )
-
-    if img.ndim in (4, 5) and rows_pallas_supported(
-        y0, y1, fy, h, img.shape[-2] * img.shape[-1]
-    ):
-        return resize_rows_pallas(
-            img, y0, y1, fy, emit_u8=emit_u8, channel_minor=channel_minor
-        )
-    f = fy.reshape((-1, 1, 1, 1) if channel_minor else (-1, 1, 1))
-    return finish(row_gather(y0) * (1 - f) + row_gather(y1) * f)
-
-
-def resize_bilinear(
-    img: jnp.ndarray, out_h: int, out_w: int, col_map=None
-) -> jnp.ndarray:
+def resize_bilinear(img: jnp.ndarray, out_h: int, out_w: int) -> jnp.ndarray:
     """Center-aligned bilinear resize of float ``(..., H, W)`` or
     ``(..., H, W, C)`` data, matching OpenCV INTER_LINEAR coordinate
     mapping ``src = (dst + 0.5) * scale - 0.5`` with edge clamping.
-
-    ``col_map`` (int32 host array ``(2, W)`` of per-spatial-column
-    ``(j, x)`` storage pairs) supports column-pitched 4D inputs
-    ``(..., H, bw, nbx)`` from ``dct.idct2_wire_to_planes_pitched``: the
-    gather indices are remapped on the host, so results are bit-identical
-    to the spatial layout. Channels-last inputs are spatial-only.
     """
     channels_last = img.ndim >= 3 and img.shape[-1] <= 4
     if channels_last:
         h, w = img.shape[-3], img.shape[-2]
     else:
         h, w = img.shape[-2], img.shape[-1]
-    if col_map is not None:
-        h = img.shape[-3]
-        w = col_map.shape[1]  # spatial width; storage is (bw, nbx) pitched
+    # the weights stay host-side numpy: the identity decisions need
+    # concrete values even while tracing
+    y0, y1, fy, y_ident = bilinear_axis_weights(out_h, h)
+    x0, x1, fx, x_ident = bilinear_axis_weights(out_w, w)
 
-    def axis_weights(out_n: int, in_n: int):
-        src = (np.arange(out_n) + 0.5) * in_n / out_n - 0.5
-        i0 = np.floor(src).astype(np.int32)
-        frac = (src - i0).astype(np.float32)
-        # clamp to valid range; OpenCV clamps coordinates at the borders
-        frac = np.where(i0 < 0, 0.0, frac)
-        frac = np.where(i0 >= in_n - 1, 0.0, frac).astype(np.float32)
-        i0 = np.clip(i0, 0, in_n - 1)
-        i1 = np.clip(i0 + 1, 0, in_n - 1)
-        # an identity axis (all-zero fractions, e.g. a padded width that
-        # equals the output) lets callers skip the second gather and the
-        # blend — multiplying by exact 0/1 weights is bit-identical.
-        # fracs stay host-side numpy: gate decisions need concrete values
-        # even while tracing (jnp constants stage as tracers under jit)
-        return i0, i1, frac, bool((frac == 0).all())
-
-    y0, y1, fy, y_ident = axis_weights(out_h, h)
-    x0, x1, fx, x_ident = axis_weights(out_w, w)
-
-    def blend(a_fn, b_fn, frac, ident, fshape):
-        a = a_fn()
+    def blend(x, axis, i0, i1, frac, ident, n_in):
+        """Resample ``x`` along ``axis``; an identity axis (all-zero
+        fractions) skips the second gather and the blend, and a same-size
+        identity skips the gather too — multiplying by exact 0/1 weights
+        is bit-identical."""
         if ident:
-            return a
-        return a * (1 - frac.reshape(fshape)) + b_fn() * frac.reshape(
-            fshape
-        )
-    if col_map is not None:
-        # pitched path: rows gather on axis -3, the column step gathers
-        # through the (j, x) pair of each spatial source column
-        j0, b0 = col_map[0][x0], col_map[1][x0]
-        j1, b1 = col_map[0][x1], col_map[1][x1]
-        from svc_tpu.ops.resize_pallas import (
-            resize_rows_pallas,
-            rows_pallas_supported,
-        )
+            return x if len(i0) == n_in else jnp.take(x, i0, axis=axis)
+        fshape = [1] * x.ndim
+        fshape[axis] = -1
+        f = frac.reshape(fshape)
+        return jnp.take(x, i0, axis=axis) * (1 - f) + jnp.take(
+            x, i1, axis=axis
+        ) * f
 
-        rows_kernel_ok = (
-            not y_ident
-            and img.ndim == 4
-            and rows_pallas_supported(
-                y0, y1, fy, h, img.shape[-2] * img.shape[-1]
-            )
-        )
-        if rows_kernel_ok:
-            # fused gather+lerp row kernel: the XLA lowering spends
-            # ~6 ms/batch on two full-tensor row gathers plus the blend
-            # at 1080p (same lerp expression; FMA contraction may differ
-            # by ~1e-5 — see ops/resize_pallas.py)
-            mid0 = resize_rows_pallas(img, y0, y1, fy)
-        else:
-            mid0 = blend(
-                lambda: img[..., y0, :, :], lambda: img[..., y1, :, :],
-                fy, y_ident, (-1, 1, 1),
-            )  # (..., out_h, bw, nbx)
-        return blend(
-            lambda: mid0[..., j0, b0], lambda: mid0[..., j1, b1],
-            fx, x_ident, (-1,),
-        )
-
-    if channels_last:
-        mid0 = blend(
-            lambda: img[..., y0, :, :], lambda: img[..., y1, :, :],
-            fy, y_ident, (-1, 1, 1),
-        )
-        return blend(
-            lambda: mid0[..., :, x0, :], lambda: mid0[..., :, x1, :],
-            fx, x_ident, (-1, 1),
-        )
-    mid0 = blend(
-        lambda: img[..., y0, :], lambda: img[..., y1, :],
-        fy, y_ident, (-1, 1),
-    )
-    return blend(
-        lambda: mid0[..., :, x0], lambda: mid0[..., :, x1],
-        fx, x_ident, (-1,),
-    )
+    y_axis, x_axis = (-3, -2) if channels_last else (-2, -1)
+    mid = blend(img, img.ndim + y_axis, y0, y1, fy, y_ident, h)
+    return blend(mid, img.ndim + x_axis, x0, x1, fx, x_ident, w)

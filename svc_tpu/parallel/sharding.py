@@ -1,20 +1,20 @@
 """Frame-parallel sharded encoding over a device mesh.
 
-Scale-out design (SURVEY.md §2.2/§2.3, BASELINE.json config 5): frames are
-embarrassingly parallel given the previous frame — frame ``t`` depends on
-``t-1`` only through the *input* pyramid (reference: libs/encoder.cpp:
-661-663, the encoder just swaps pyramids). So a video shards across a TPU
-slice as raw packed frame chunks along a ``frames`` mesh axis, each chunk
+Scale-out design (SURVEY.md §2.2/§2.3): frames are embarrassingly
+parallel given the previous frame — frame ``t`` depends on ``t-1`` only
+through the *input* pyramid (reference: libs/encoder.cpp:661-663, the
+encoder just swaps pyramids). So a video shards across the devices of a
+host as raw packed frame chunks along a ``frames`` mesh axis, each chunk
 carrying a one-frame halo (its first anchor's tracked frame — the last
-frame of the previous chunk, duplicated host-side; ~one frame of extra H2D
-per device). The ENTIRE per-frame transform — de-interleave, pad, luma,
+frame of the previous chunk, duplicated host-side; ~one frame of extra
+H2D per device). The ENTIRE per-frame transform — de-interleave, pad, luma,
 pyramid, motion, segmentation, DCT — runs inside the ``shard_map`` program:
 no stage ever materializes the full super-batch on one device, and every
-device's H2D transfer is exactly its own chunk. Collectives (``psum`` over
-ICI) are used only for stream-level statistics, never per block.
+device's H2D transfer is exactly its own chunk. Collectives (``psum``) are
+used only for stream-level statistics, never per block.
 
-This replaces what a CUDA/MPI design would do with NCCL ranks: one
-``shard_map`` over a ``Mesh``, XLA inserts the communication.
+One ``shard_map`` over a ``Mesh`` takes the place of per-process ranks;
+XLA inserts the communication.
 """
 
 from __future__ import annotations
@@ -36,8 +36,10 @@ def make_frame_mesh(n_devices: Optional[int] = None,
                     devices: Optional[Sequence] = None) -> Mesh:
     """A 1-D mesh over the frame-batch axis.
 
-    On a real slice the axis rides ICI; in tests it spans virtual CPU
-    devices (``xla_force_host_platform_device_count``).
+    On a multi-GPU host the axis spans the host's cards (every card reaches
+    every other at the same rate, so the mesh follows the algorithm
+    alone); in tests it spans virtual CPU devices
+    (``xla_force_host_platform_device_count``).
     """
     if devices is None:
         devices = jax.devices()
@@ -53,7 +55,7 @@ class ShardedEncoder:
     (``Encoder.encode_batch_fn`` — frontend included) on a local chunk of
     ``batch_per_device`` anchor frames plus its one-frame halo; ``psum``
     aggregates stream statistics (foreground block count, mean RANSAC
-    RMSE) across the slice.
+    RMSE) across the mesh.
     """
 
     def __init__(
@@ -79,7 +81,7 @@ class ShardedEncoder:
         def local_encode(packed_chunk, keys):
             # (1, bpd+1, H, W*3) local chunk view -> single-chip program
             out = batch_fn(packed_chunk[0], keys[0])
-            # cross-device stream statistics over ICI
+            # cross-device stream statistics
             fg_count = jnp.sum(out["foreground_mask"])
             out["total_foreground_blocks"] = jax.lax.psum(
                 fg_count, FRAME_AXIS

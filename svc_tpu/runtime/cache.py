@@ -1,73 +1,36 @@
-"""Persistent XLA compilation cache (versioned).
+"""Persistent XLA compilation cache.
 
-First compilation of the encoder pipeline takes minutes on TPU (the
-candidate-shift unrolls produce large programs); enabling JAX's persistent
-compilation cache makes every subsequent process start in seconds. Used by
-the CLI apps and bench.
+Compiling the encoder pipeline at a new shape takes a long time (the
+candidate-shift unrolls produce large programs); JAX's persistent
+compilation cache lets every later process load the executables instead.
+Used by the CLI apps and the benchmark.
 
-The cache directory is VERSIONED by (svc_tpu version, jax version): the
-boundary-layout pins (runtime/layouts.py) leave the concrete TILING of
-pinned parameters unspecified, the compiled executable specializes to the
-tiling of the first argument that reaches it, and the persistent cache
-does NOT key on that choice — so an executable cached by an older build
-whose staging path produced a different tiling can be loaded by a newer
-build and fail every dispatch with ``INVALID_ARGUMENT: TPU backend error``
-(this exact failure took out 3 of 4 bench matrix legs in the round-3
-driver run). Keying the directory on both versions makes stale
-cross-build executables unloadable. :func:`purge_cache` is the recovery
-path when a live session still hits a poisoned entry.
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module sets no directory. Otherwise the cache lives at one fixed path
+inside the checkout (``<repo>/.jax_cache``, ignored by git): the path is
+part of what a cache hit needs, so it must not move between runs.
 """
 
 from __future__ import annotations
 
 import os
-import shutil
-from typing import Optional
 
-_BASE = os.path.expanduser("~/.cache/svc_tpu")
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ),
+    ".jax_cache",
+)
+
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
 
 
-def cache_dir(path: Optional[str] = None) -> str:
-    """The versioned cache directory currently in effect."""
-    if path:
-        return path
-    env = os.environ.get("SVC_TPU_COMPILE_CACHE")
-    if env:
-        return env
+def enable_persistent_cache() -> None:
+    """Enable the JAX compilation cache (see the module docstring)."""
     import jax
 
-    import svc_tpu
-
-    return os.path.join(
-        _BASE, f"jax-v{svc_tpu.__version__}-jax{jax.__version__}"
-    )
-
-
-def enable_persistent_cache(path: Optional[str] = None) -> None:
-    """Enable the JAX compilation cache at ``path`` (best effort)."""
-    import jax
-
-    d = cache_dir(path)
-    try:
-        os.makedirs(d, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", d)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        pass  # cache is an optimization, never a requirement
-
-
-def purge_cache(path: Optional[str] = None) -> None:
-    """Delete every entry in the versioned cache directory (best effort).
-
-    Recovery path for a poisoned cache entry (see module docstring): a
-    bench leg that fails with ``INVALID_ARGUMENT`` purges and retries once
-    in a fresh process.
-    """
-    d = cache_dir(path)
-    try:
-        if os.path.isdir(d):
-            shutil.rmtree(d, ignore_errors=True)
-        os.makedirs(d, exist_ok=True)
-    except Exception:
-        pass
+    if not os.environ.get(ENV_VAR):
+        os.makedirs(DEFAULT_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

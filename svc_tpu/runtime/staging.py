@@ -2,9 +2,9 @@
 ``i+1`` with the device compute of batch ``i``.
 
 The reference overlaps input I/O with encode via its reader thread +
-bounded queue (apps/encoder.cpp:125-149, queue cap 10); the TPU-native
+bounded queue (apps/encoder.cpp:125-149, queue cap 10); the batched
 analog overlaps the host->device TRANSFER with compute. A staging call
-(``device_put`` into the program's pinned layout) is submitted on a
+(``jax.device_put`` of the batch) is submitted on a
 worker thread as soon as a batch's host frames are assembled; the main
 thread dispatches device compute on the PREVIOUSLY staged batch and only
 then collects the new one — so at steady state the copy engine streams

@@ -7,7 +7,7 @@ observability surface a production codec needs:
 * ``Tracer`` — lightweight wall-clock span recorder with JSON export and
   per-stage aggregate stats (count/total/mean/max),
 * ``device_profile`` — context manager around ``jax.profiler.trace`` for
-  full XLA/TPU traces viewable in TensorBoard/Perfetto,
+  full XLA device traces viewable in TensorBoard/Perfetto,
 * throughput accounting used by the apps' ``--trace`` flag.
 """
 
@@ -83,7 +83,7 @@ class Tracer:
 
 @contextlib.contextmanager
 def device_profile(log_dir: Optional[str]) -> Iterator[None]:
-    """XLA/TPU device trace via ``jax.profiler`` when a dir is given."""
+    """XLA device trace via ``jax.profiler`` when a dir is given."""
     if not log_dir:
         yield
         return

@@ -1,5 +1,5 @@
 """Utility layer: scalar math helpers, error types, CLI parsing.
 
-TPU-native counterpart of the reference's L0 utility layer
+Counterpart of the reference's L0 utility layer
 (libs/types.hpp, libs/math.hpp, libs/error.hpp, libs/cli.hpp).
 """

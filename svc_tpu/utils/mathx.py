@@ -1,6 +1,6 @@
 """Scalar/shape math helpers used across the framework.
 
-TPU-native counterpart of the reference's header-only math layer
+Counterpart of the reference's header-only math layer
 (reference: libs/math.hpp:10-291). Only the pieces that influence codec
 geometry and numerics are re-provided; vector arithmetic is plain
 ``jax.numpy`` in this framework.

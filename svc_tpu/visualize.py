@@ -236,7 +236,7 @@ def _require_planes(encoder) -> None:
 
 class VisualizingEncoder:
     """Wraps an ``Encoder`` and dumps per-frame composites to a directory —
-    the TPU framework's equivalent of the encoder-visualizer flavor."""
+    the framework's equivalent of the encoder-visualizer flavor."""
 
     def __init__(self, encoder, out_dir: str):
         _require_planes(encoder)

@@ -2,7 +2,7 @@
 // decode path (ParseBlock + DecodeBlock, libs/decoder.cpp:102-149,
 // UNMODIFIED — the functions are file-static, so this TU includes the
 // reference source directly) over a complete bitstream and emits the
-// reconstructed padded float frames, so the TPU framework's
+// reconstructed padded float frames, so the JAX framework's
 // dequantize + IDCT + merge can be compared block-for-block.
 //
 // The display tail of Decoder::operator() (gaze snapshotting, /255,

@@ -1,6 +1,6 @@
 // End-to-end golden-output generator: runs the C++ reference's FULL
 // Encoder pipeline (libs/encoder.cpp:144-671, unmodified) on raw BGR frames
-// and emits the complete bitstream, so the TPU framework's encoder output
+// and emits the complete bitstream, so the JAX framework's encoder output
 // can be compared against the reference byte-for-byte (header + block
 // types) and ulp-for-ulp (DCT coefficients).
 //

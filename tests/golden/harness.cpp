@@ -1,5 +1,5 @@
 // Golden-output generator: drives the C++ reference's motion-estimation
-// kernels directly so the TPU framework's motion fields can be compared
+// kernels directly so the JAX framework's motion fields can be compared
 // bit-for-bit (SURVEY.md §4: golden parity with seeded determinism —
 // HBMA/EBMA have no RNG, so exact comparison is possible).
 //

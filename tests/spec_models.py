@@ -3,7 +3,7 @@
 These are deliberately naive sequential implementations written from the
 algorithm semantics documented in SURVEY.md (per-block raster scans, running
 minima with the reference's tie-break rules, flat-region reset, cross-level
-MAD carry). They exist purely as test oracles for the vectorized TPU ops —
+MAD carry). They exist purely as test oracles for the vectorized device ops —
 slow, obvious, and independent of the implementation under test.
 """
 

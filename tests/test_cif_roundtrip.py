@@ -1,4 +1,4 @@
-"""CIF end-to-end gate (BASELINE.json config 1).
+"""CIF end-to-end gate (the CIF round-trip target in BASELINE.md).
 
 Full default codec configuration (16x16 MV blocks, 4 pyramid levels,
 range 8, k=10, 8x8 DCT) on a CIF 352x288 clip — the reference's canonical

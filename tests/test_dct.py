@@ -88,151 +88,143 @@ class TestQuant:
         np.testing.assert_array_equal(steps, [[640, 2], [1, 1]])
 
 
-class TestWireDctPallas:
-    """The Pallas wire-DCT kernel (interpret mode on CPU) against the XLA
-    formulation, and the row-paired MXU variant against the unpaired one
-    (diag(W, W) interleaves exact zeros — results must be bit-identical)."""
+# the wire-layout shapes the encoder and decoder run: (C, T, H, W) planes
+# and (T, nby, nbx) coefficient grids, including lane-unaligned widths
+WIRE_PLANE_SHAPES = [(3, 2, 32, 48), (3, 3, 64, 256)]
+WIRE_GRIDS = [(2, 16, 32), (1, 8, 24)]
 
-    def _planes(self, shape=(3, 2, 32, 48)):
-        rng = np.random.default_rng(11)
-        return jnp.asarray(rng.integers(0, 256, shape, dtype=np.uint8))
 
-    def test_kernel_matches_xla_wire_layout(self):
+def _scipy_dct_blocks(planes, bh, bw, inverse=False):
+    """float64 blockwise orthonormal DCT-II (or III) of ``(..., H, W)``."""
+    fft = pytest.importorskip("scipy.fft")
+    *lead, h, w = planes.shape
+    x = planes.astype(np.float64).reshape(*lead, h // bh, bh, w // bw, bw)
+    fn = fft.idctn if inverse else fft.dctn
+    return fn(x, type=2, norm="ortho", axes=(-3, -1)).reshape(planes.shape)
+
+
+def _wire_to_planes_np(wire, channels, bh, bw):
+    """(T, nby, nbx, C*bh*bw) -> (T, C, nby*bh, nbx*bw), host NumPy."""
+    t, nby, nbx, _ = wire.shape
+    x = wire.reshape(t, nby, nbx, channels, bh, bw)
+    return x.transpose(0, 3, 1, 4, 2, 5).reshape(
+        t, channels, nby * bh, nbx * bw
+    )
+
+
+class TestWireDct:
+    """The encoder's wire-layout forward DCT and the decoder's wire-layout
+    inverse against independent oracles (OpenCV per block, and SciPy in
+    float64): the forward transform within the README's 2.5e-4 absolute
+    coefficient gate."""
+
+    @pytest.mark.parametrize("oracle", ["opencv", "scipy"])
+    @pytest.mark.parametrize("shape", WIRE_PLANE_SHAPES)
+    def test_forward_wire_matches_oracle(self, shape, oracle):
         from svc_tpu.ops.dct import dct2_planes_to_wire
-        from svc_tpu.ops.dct_pallas import dct2_planes_to_wire_pallas
 
-        planes = self._planes()
-        ref = dct2_planes_to_wire(planes, 8, 8)
-        got = dct2_planes_to_wire_pallas(planes, 8, 8)
-        assert got.shape == ref.shape
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(ref), atol=2e-3, rtol=0
-        )
-
-    def test_paired_bit_identical_to_unpaired(self):
-        from svc_tpu.ops import dct_pallas
-
-        planes = self._planes((3, 2, 32, 48))  # nby=4 -> paired (r=4)
-        paired = dct_pallas.dct2_planes_to_wire_pallas(planes, 8, 8)
-        assert dct_pallas._rows_per_step(4) % 2 == 0
-
-        # force the unpaired kernel by monkeypatching the row count to an
-        # odd divisor
-        orig = dct_pallas._rows_per_step
-        dct_pallas._rows_per_step = lambda nby, target=8: 1
-        try:
-            unpaired = dct_pallas.dct2_planes_to_wire_pallas(planes, 8, 8)
-        finally:
-            dct_pallas._rows_per_step = orig
-        np.testing.assert_array_equal(np.asarray(paired), np.asarray(unpaired))
-
-    def test_jsplit_bit_identical_to_spatial(self):
-        """The j-split forward kernel (column-pitched subplane input with
-        row-permuted stage-1 weights) must be BIT-identical to the spatial
-        kernel: the permutation only reorders exact-zero products."""
-        from svc_tpu.ops.dct_pallas import (
-            dct2_jsplit_to_wire_pallas,
-            dct2_planes_to_wire_pallas,
-            pallas_wire_dct_jsplit_supported,
-        )
-        from svc_tpu.ops.interleave import deinterleave_rows_jsplit
-
-        rng = np.random.default_rng(7)
-        c, t, h, w = 3, 3, 64, 256  # nby=8 -> r=8 (paired), w%128==0
-        frames = rng.integers(0, 256, (t, h, w, c), dtype=np.uint8)
-        packed = jnp.asarray(frames.reshape(t, h, w * c))
-        jp = deinterleave_rows_jsplit(packed, c, 8)  # (3, 8, t, h, nbx)
-        # spatial planes from the same frames
-        planes = jnp.asarray(frames.transpose(3, 0, 1, 2))
-        assert pallas_wire_dct_jsplit_supported(c, h, w, 8, 8)
-        ref = dct2_planes_to_wire_pallas(planes, 8, 8, frame_offset=1)
-        got = dct2_jsplit_to_wire_pallas(jp, 8, 8, frame_offset=1)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-    def test_jsplit_pad_skip_bit_identical(self):
-        """Unpadded input + padded_h: the kernel synthesizes the pad
-        block rows' coefficients as exact zeros — bit-identical to
-        running on explicitly zero-padded planes."""
-        from svc_tpu.ops.dct_pallas import dct2_jsplit_to_wire_pallas
-        from svc_tpu.ops.interleave import deinterleave_rows_jsplit
-
-        rng = np.random.default_rng(8)
-        c, t, h, ph, w = 3, 3, 56, 64, 256  # one 8-row pad block band
-        frames = rng.integers(0, 256, (t, h, w, c), dtype=np.uint8)
-        packed = jnp.asarray(frames.reshape(t, h, w * c))
-        jp = deinterleave_rows_jsplit(packed, c, 8)  # (3, 8, t, h, nbx)
-        ref = dct2_jsplit_to_wire_pallas(
-            jnp.pad(jp, ((0, 0), (0, 0), (0, 0), (0, ph - h), (0, 0))),
-            8, 8, frame_offset=1,
-        )
-        got = dct2_jsplit_to_wire_pallas(
-            jp, 8, 8, frame_offset=1, padded_h=ph
-        )
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-    def test_encoder_jsplit_frontend_bit_identical(self):
-        """End-to-end: an encoder on the j-split frontend (pitched
-        de-interleave feeding the j-split DCT kernel, luma respatialized
-        by a thin transpose) produces bit-identical outputs to the
-        spatial-frontend encoder (keep_planes forces the classic path)."""
-        from svc_tpu.config import EncoderConfig, VideoProperties
-        from svc_tpu.models.encoder import Encoder
-
-        t, h, w = 2, 64, 256
-        cfg = EncoderConfig()
-        props = VideoProperties(frame_w=w, frame_h=h, frame_count=t + 1)
-        enc_j = Encoder(cfg, props, batch_size=t)
-        enc_s = Encoder(cfg, props, batch_size=t, keep_planes=True)
-        assert enc_j._use_jsplit and not enc_s._use_jsplit
-
-        rng = np.random.default_rng(9)
-        frames = rng.integers(0, 256, (t + 1, h, w, 3), dtype=np.uint8)
-        out_j = enc_j.encode_batch(frames, 0)
-        out_s = enc_s.encode_batch(frames, 0)
-        for key in ("coeffs", "block_types", "mv_field", "cluster_labels"):
-            np.testing.assert_array_equal(
-                np.asarray(out_j[key]), np.asarray(out_s[key]), err_msg=key
+        rng = np.random.default_rng(sum(shape))
+        planes = rng.integers(0, 256, shape, dtype=np.uint8)
+        got = np.asarray(dct2_planes_to_wire(jnp.asarray(planes), 8, 8))
+        c, t, h, w = shape
+        assert got.shape == (t, h // 8, w // 8, c * 64)
+        got_planes = _wire_to_planes_np(got, c, 8, 8)  # (T, C, H, W)
+        src = planes.transpose(1, 0, 2, 3).astype(np.float32)
+        if oracle == "opencv":
+            ref = np.stack(
+                [
+                    [_blockwise_cv_dct(src[i, ch], 8, 8) for ch in range(c)]
+                    for i in range(t)
+                ]
             )
+        else:
+            ref = _scipy_dct_blocks(src, 8, 8)
+        np.testing.assert_allclose(got_planes, ref, atol=2.5e-4, rtol=0)
 
+    @pytest.mark.parametrize("bh,bw", [(8, 8), (4, 8), (16, 16)])
+    def test_split_weights_hi_sums_exactly(self, bh, bw):
+        """Every partial sum of ``uint8 @ hi`` is a float32-exact multiple
+        of 2**-frac, and ``hi + lo`` is the float64 transform."""
+        from svc_tpu.ops.dct import _dct_matrix64, fwd_split_weights
 
-class TestWireIdctPallas:
-    """The fused dequant + wire-IDCT kernel (interpret mode on CPU) must be
-    bit-identical to the XLA decode path: quantize -> (C*n, C*n) stage dots
-    -> pitch transpose (ops/dct.idct2_wire_to_planes_pitched)."""
+        weights, frac = fwd_split_weights(bh, bw)
+        n = bh * bw
+        hi = weights[:, :n].astype(np.float64)
+        lo = weights[:, n:].astype(np.float64)
+        assert np.array_equal(hi * 2.0**frac, np.round(hi * 2.0**frac))
+        assert 255 * np.abs(hi).sum(axis=0).max() < 2.0 ** (24 - frac)
+        assert np.abs(lo).max() <= 2.0 ** -(frac + 1)
+        exact = np.kron(_dct_matrix64(bh), _dct_matrix64(bw)).T
+        np.testing.assert_allclose(hi + lo, exact, rtol=0, atol=1e-11)
 
-    @pytest.mark.parametrize("t,nby,nbx", [(2, 16, 32), (1, 8, 24)])
-    def test_bit_identical_vs_xla_path(self, t, nby, nbx):
-        from svc_tpu.ops.dct import idct2_wire_to_planes_pitched
-        from svc_tpu.ops.dct_pallas import (
-            idct_wire_to_pitched_pallas,
-            pallas_wire_idct_supported,
-        )
-        from svc_tpu.ops.quant import quantize
+    @pytest.mark.parametrize("shape", WIRE_PLANE_SHAPES + [(3, 1, 136, 240)])
+    def test_forward_wire_within_half_ulp(self, shape):
+        """Each coefficient is the exact transform rounded once: within
+        half a float32 ulp (plus the lo half's ~1e-7) of float64 SciPy,
+        including saturated blocks whose DC is 2040."""
+        from svc_tpu.ops.dct import dct2_planes_to_wire
+
+        rng = np.random.default_rng(sum(shape) + 1)
+        planes = rng.integers(0, 256, shape, dtype=np.uint8)
+        planes[..., :8, :16] = 255
+        got = np.asarray(dct2_planes_to_wire(jnp.asarray(planes), 8, 8))
+        src = planes.transpose(1, 0, 2, 3)
+        ref = _scipy_dct_blocks(src, 8, 8)
+        got_planes = _wire_to_planes_np(got, shape[0], 8, 8)
+        half_ulp = 0.5 * np.spacing(np.abs(ref).astype(np.float32))
+        assert (np.abs(got_planes - ref) <= half_ulp + 1e-6).all()
+
+    def test_forward_wire_independent_of_summation_order(self):
+        """A float32 NumPy evaluation summing the terms in reverse order
+        lands within one ulp: the hi sums agree exactly, so only the last
+        rounding of ``hi + lo`` can differ (a GPU and a CPU backend differ
+        the same way)."""
+        from svc_tpu.ops.dct import dct2_planes_to_wire, fwd_split_weights
+
+        rng = np.random.default_rng(5)
+        planes = rng.integers(0, 256, (3, 2, 32, 64), dtype=np.uint8)
+        got = np.asarray(dct2_planes_to_wire(jnp.asarray(planes), 8, 8))
+        weights, _ = fwd_split_weights(8, 8)
+        c, t, h, w = planes.shape
+        blocks = planes.reshape(c, t, h // 8, 8, w // 8, 8)
+        blocks = blocks.transpose(1, 2, 4, 0, 3, 5).reshape(-1, 64)
+        x = blocks.astype(np.float32)
+        z = np.zeros((x.shape[0], 128), np.float32)
+        for i in reversed(range(64)):
+            z += x[:, i : i + 1] * weights[i]
+        hi64 = x.astype(np.float64) @ weights[:, :64].astype(np.float64)
+        assert np.array_equal(z[:, :64], hi64)
+        ref = (z[:, :64] + z[:, 64:]).reshape(got.shape)
+        assert (np.abs(got - ref) <= np.spacing(np.abs(ref)) + 1e-6).all()
+
+    @pytest.mark.parametrize("oracle", ["opencv", "scipy"])
+    @pytest.mark.parametrize("t,nby,nbx", WIRE_GRIDS)
+    def test_inverse_wire_matches_oracle(self, t, nby, nbx, oracle):
+        from svc_tpu.ops.dct import idct2_wire_to_planes
 
         c, bh, bw = 3, 8, 8
         rng = np.random.default_rng(nby + nbx)
-        coeffs = (rng.normal(size=(t, nby, nbx, c * bh * bw)) * 120).astype(
+        wire = (rng.normal(size=(t, nby, nbx, c * bh * bw)) * 120).astype(
             np.float32
         )
-        steps = rng.choice([1.0, 640.0, 13.0], size=(t, nby, nbx)).astype(
-            np.float32
+        got = np.stack(
+            [
+                np.asarray(idct2_wire_to_planes(jnp.asarray(f), c, bh, bw))
+                for f in wire
+            ]
         )
-        assert pallas_wire_idct_supported(c, nby, nbx, bh, bw)
-        got = idct_wire_to_pitched_pallas(
-            jnp.asarray(coeffs), jnp.asarray(steps), c, bh, bw
-        )
-        ref = []
-        for i in range(t):
-            deq = quantize(
-                jnp.asarray(coeffs[i]), jnp.asarray(steps[i])[:, :, None]
+        assert got.shape == (t, c, nby * bh, nbx * bw)
+        coeff_planes = _wire_to_planes_np(wire, c, bh, bw)
+        if oracle == "opencv":
+            ref = np.stack(
+                [
+                    [
+                        _blockwise_cv_dct(coeff_planes[i, ch], bw, bh, True)
+                        for ch in range(c)
+                    ]
+                    for i in range(t)
+                ]
             )
-            p, _ = idct2_wire_to_planes_pitched(deq, c, bh, bw)
-            ref.append(np.asarray(p))
-        np.testing.assert_array_equal(np.asarray(got), np.stack(ref))
-
-    def test_gate(self):
-        from svc_tpu.ops.dct_pallas import pallas_wire_idct_supported
-
-        assert pallas_wire_idct_supported(3, 136, 240, 8, 8)  # 1080p
-        assert pallas_wire_idct_supported(3, 272, 480, 8, 8)  # 4K
-        assert not pallas_wire_idct_supported(3, 16, 4, 8, 8)  # narrow
+        else:
+            ref = _scipy_dct_blocks(coeff_planes, bh, bw, inverse=True)
+        np.testing.assert_allclose(got, ref, atol=2e-3)

@@ -29,7 +29,7 @@ independent of both):
 
 Compared byte-for-byte: the 32-byte header and every block-type field.
 DCT coefficients (RNG-independent) are compared at the measured ulp gate
-documented in BASELINE.md: our MXU-matmul DCT vs OpenCV's factorized DCT
+documented in BASELINE.md: our matrix-product DCT vs OpenCV's factorized DCT
 (encoder.cpp:323-339) differ only in float32 summation order.
 """
 
@@ -219,7 +219,7 @@ class TestKClampRegime:
     +1 to the block-type offset (its ``cv::connectedComponents`` analog
     returns 1 label — just the background). This class constructs the
     0 < fg_count < cluster_count regime and asserts the documented
-    consequences (VERDICT round-2 item 7):
+    consequences:
 
     * the bg/fg classification is identical to the reference (decode only
       distinguishes 0 vs nonzero, libs/decoder.cpp:128-135),

@@ -1,8 +1,9 @@
 """Golden parity vs the ACTUAL C++ reference implementation.
 
 Builds a small harness linking the unmodified reference ``motion.cpp``
-(read-only at /root/reference) and compares the TPU framework's motion
-fields and min-MADs bit-for-bit — EBMA, generic HBMA, the pinned
+(a read-only checkout of the reference sources) and compares the JAX
+framework's motion fields and min-MADs bit-for-bit — EBMA, generic
+HBMA, the pinned
 SSE2-flavor HBMA, and whole-frame global motion. HBMA has no RNG, so
 exact float equality is required, which transitively validates the
 OpenCV-exact pyramid, tie-break rules (Q8), the flat-region heuristic

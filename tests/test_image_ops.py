@@ -110,6 +110,27 @@ class TestPyramid:
         for a, b in zip(ours, ref):
             np.testing.assert_array_equal(np.asarray(a), b)
 
+    # batched shapes the encoder runs, including 1080p's padded frame and
+    # a 1920-wide strip whose half-width is not a power of two
+    @pytest.mark.parametrize(
+        "t,h,w",
+        [
+            (2, 64, 128),
+            (1, 96, 160),
+            (3, 32, 64),
+            (2, 136, 240),
+            (2, 64, 1920),
+            (1, 1088, 1920),
+        ],
+    )
+    def test_pyr_down_batched_matches_opencv(self, t, h, w):
+        imgs = np.random.default_rng(h + w).integers(
+            0, 256, (t, h, w)
+        ).astype(np.uint8)
+        got = np.asarray(pyr_down(jnp.asarray(imgs)))
+        for i in range(t):
+            np.testing.assert_array_equal(got[i], cv2.pyrDown(imgs[i]))
+
     def test_pyr_down_batched(self):
         imgs = np.random.default_rng(4).integers(0, 256, (3, 32, 32)).astype(np.uint8)
         got = np.asarray(pyr_down(jnp.asarray(imgs)))
@@ -151,81 +172,44 @@ class TestResize:
         np.testing.assert_allclose(got, img, atol=1e-6)
 
 
-class TestInterleave:
-    """The selection-matmul (de)interleave helpers are exact and mutually
-    inverse (ops/interleave.py)."""
+class TestBilinearPlanes:
+    """The decoder's display resize on ``(C, H, W)`` channel planes
+    against ``cv2.resize`` per plane: row-only, column-only and same-size
+    (identity) geometries."""
 
-    def test_roundtrip_and_reference(self):
-        from svc_tpu.ops import interleave
+    def _planes(self, seed, h=136, w=240):
+        rng = np.random.default_rng(seed)
+        return (rng.normal(size=(3, h, w)) * 60 + 128).astype(np.float32)
 
-        rng = np.random.default_rng(0)
-        t, h, w, c = 2, 5, 256, 3
-        frames = rng.integers(0, 256, (t, h, w, c), np.uint8)
-        packed = jnp.asarray(frames.reshape(t, h, w * c))
-        planes = interleave.deinterleave_rows(packed, c)  # (C, T, H, W)
-        ref = np.transpose(frames, (3, 0, 1, 2))
-        np.testing.assert_array_equal(np.asarray(planes), ref)
-
-        # inverse direction from (T, C, H, W)
-        back = interleave.interleave_rows(jnp.moveaxis(planes, 0, 1))
-        np.testing.assert_array_equal(np.asarray(back), frames.reshape(t, h, w * c))
-
-    def test_lane_aligned_gate(self):
-        from svc_tpu.ops import interleave
-
-        assert interleave.lane_aligned(1920)
-        assert not interleave.lane_aligned(352)
-
-    def test_pitched_interleave_matches_unpitch_then_interleave(self):
-        """interleave_rows_pitched folds the decoder's un-pitch
-        permutation into the packed-interleave selection — must equal
-        un-pitching spatially and interleaving."""
-        from svc_tpu.ops import interleave
-
-        rng = np.random.default_rng(3)
-        t, c, hh, bw, nbx = 2, 3, 6, 8, 32  # W = 256
-        assert interleave.pitched_interleave_supported(bw, nbx)
-        pitched = rng.integers(0, 256, (t, c, hh, bw, nbx), np.uint8)
-        got = interleave.interleave_rows_pitched(jnp.asarray(pitched), bw)
-        # spatial un-pitch: column x*bw + j <- storage (j, x)
-        spatial = np.transpose(pitched, (0, 1, 2, 4, 3)).reshape(
-            t, c, hh, bw * nbx
+    def _cv(self, planes, out_h, out_w):
+        return np.stack(
+            [
+                cv2.resize(p, (out_w, out_h), interpolation=cv2.INTER_LINEAR)
+                for p in planes
+            ]
         )
-        ref = np.asarray(
-            interleave.interleave_rows(jnp.asarray(spatial))
+
+    @pytest.mark.parametrize("out_h", [126, 131, 135])
+    def test_rows_match_opencv(self, out_h):
+        planes = self._planes(out_h)
+        got = np.asarray(resize_bilinear(jnp.asarray(planes), out_h, 240))
+        np.testing.assert_allclose(
+            got, self._cv(planes, out_h, 240), atol=1e-4, rtol=0
         )
-        np.testing.assert_array_equal(np.asarray(got), ref)
-        assert not interleave.pitched_interleave_supported(8, 44)  # CIF
 
-    def test_jsplit_deinterleave_matches_stride_slices(self):
-        """deinterleave_rows_jsplit = de-interleave + column pitch: subplane
-        (c, j) lane bx must hold channel c of spatial pixel bx*bw + j."""
-        from svc_tpu.ops import interleave
+    @pytest.mark.parametrize("out_w", [230, 232, 239])
+    def test_columns_match_opencv(self, out_w):
+        planes = self._planes(out_w)
+        got = np.asarray(resize_bilinear(jnp.asarray(planes), 136, out_w))
+        np.testing.assert_allclose(
+            got, self._cv(planes, 136, out_w), atol=1e-4, rtol=0
+        )
 
-        rng = np.random.default_rng(5)
-        t, h, w, c, bw = 2, 5, 256, 3, 8
-        assert interleave.jsplit_supported(w, bw)
-        frames = rng.integers(0, 256, (t, h, w, c), np.uint8)
-        packed = jnp.asarray(frames.reshape(t, h, w * c))
-        got = interleave.deinterleave_rows_jsplit(packed, c, bw)
-        assert got.shape == (c, bw, t, h, w // bw)
-        planes = np.transpose(frames, (3, 0, 1, 2))  # (C, T, H, W)
-        ref = planes.reshape(c, t, h, w // bw, bw).transpose(0, 4, 1, 2, 3)
-        np.testing.assert_array_equal(np.asarray(got), ref)
-        assert not interleave.jsplit_supported(352, 8)  # CIF width
-        assert not interleave.jsplit_supported(1920, 7)
-
-    def test_jsplit_production_width(self):
-        """The production 1080p width runs the same selector path; results
-        must equal the de-interleave + pitch."""
-        from svc_tpu.ops import interleave
-
-        rng = np.random.default_rng(6)
-        t, h, w, c, bw = 1, 2, 1920, 3, 8
-        assert interleave.jsplit_supported(w, bw)
-        frames = rng.integers(0, 256, (t, h, w, c), np.uint8)
-        packed = jnp.asarray(frames.reshape(t, h, w * c))
-        got = interleave.deinterleave_rows_jsplit(packed, c, bw)
-        planes = np.transpose(frames, (3, 0, 1, 2))
-        ref = planes.reshape(c, t, h, w // bw, bw).transpose(0, 4, 1, 2, 3)
-        np.testing.assert_array_equal(np.asarray(got), ref)
+    @pytest.mark.parametrize("channels_last", [False, True])
+    def test_same_size_is_exact_identity(self, channels_last):
+        planes = self._planes(7, 24, 40)
+        if channels_last:
+            planes = np.ascontiguousarray(planes.transpose(1, 2, 0))
+        h, w = (24, 40)
+        got = np.asarray(resize_bilinear(jnp.asarray(planes), h, w))
+        np.testing.assert_array_equal(got, planes)

@@ -94,6 +94,31 @@ class TestRefine:
         np.testing.assert_array_equal(np.asarray(mm), mm0)
 
 
+    @pytest.mark.parametrize("block", [8, 16])
+    @pytest.mark.parametrize("bound_in", [8, 14, 20])
+    def test_spread_refine_matches_spec(self, bound_in, block):
+        """The encoder's pyramid refinement (spread cells + even-shift
+        window selection) at the window bounds a 4-level pyramid reaches
+        (bound_in 14 at the base level takes the two-stage select)."""
+        r = 1
+        tracked, anchor = _frame_pair(64, 256, bound_in + block)
+        mfh, mfw = 64 // block, 256 // block
+        rng = np.random.default_rng(bound_in)
+        # entering fields are doubled integer fields: even shifts
+        mv0 = (
+            rng.integers(-bound_in // 2, bound_in // 2 + 1, (mfh, mfw, 2))
+            * 2
+        ).astype(np.float32)
+        mm0 = rng.uniform(0, 60, (mfh, mfw)).astype(np.float32)
+        mv, mm = motion._refine_spread(
+            jnp.asarray(tracked), jnp.asarray(anchor), r, block, block,
+            jnp.asarray(mv0), jnp.asarray(mm0), bound_in=bound_in,
+        )
+        mv_s, mm_s = refine_spec(tracked, anchor, r, block, block, mv0, mm0)
+        np.testing.assert_array_equal(np.asarray(mv), mv_s)
+        np.testing.assert_array_equal(np.asarray(mm), mm_s)
+
+
 class TestHbma:
     @pytest.mark.parametrize("levels,block,r", [(2, 8, 2), (3, 8, 4)])
     def test_matches_spec_through_pyramid(self, levels, block, r):

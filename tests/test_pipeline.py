@@ -1,7 +1,7 @@
 """End-to-end pipeline tests: encode -> bitstream -> decode -> PSNR.
 
 This is the framework's integration gate (SURVEY.md §4: golden round-trip
-parity; BASELINE.json config 1 is the CIF variant of the same flow).
+parity; tests/test_cif_roundtrip.py is the CIF variant of the same flow).
 """
 
 import io
@@ -115,8 +115,7 @@ class TestDecode:
     def test_staged_h2d_decode_byte_identical(self, encoded):
         """The double-buffered coefficient H2D path must produce the
         same bytes as unstaged dispatch, including the padded final
-        batch and the drain (VERDICT: both streaming paths byte-equal
-        with staging on/off)."""
+        batch and the drain."""
         frames, cfg, chunks = encoded
         header = bs.Header.unpack(chunks[0])
         dec = Decoder(DecoderConfig(), header, batch_size=2)

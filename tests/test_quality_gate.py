@@ -1,4 +1,4 @@
-"""Quality regression gate (VERDICT round-2 item 9).
+"""Quality regression gate on real content.
 
 Asserts the recorded real-content PSNR figures (BASELINE.md, measured
 2026-08-16 on the same clip builder) within a 0.1 dB guard band, so perf

@@ -170,7 +170,7 @@ class TestTracer:
     def test_decoder_pipeline_overlap(self):
         """decode_frames keeps one batch in flight: with >= 2 batches the
         span order must show batch i+1 DISPATCHED before batch i is
-        fetched (parse/compute/fetch overlap, VERDICT round-2 item 3)."""
+        fetched (parse/compute/fetch overlap)."""
         from svc_tpu.config import DecoderConfig
         from svc_tpu.io import bitstream
         from svc_tpu.models.decoder import Decoder

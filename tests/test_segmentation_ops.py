@@ -156,69 +156,42 @@ class TestKMeans:
             np.asarray(cmp_b), np.asarray(cmp_p), rtol=1e-6
         )
 
-    def test_batched_lloyd_kernel_matches_per_frame_interpret(self):
-        """The frame-batched Pallas Lloyd kernel itself (not the vmap
-        fallback the CPU gate selects) must equal the per-frame kernel
-        bit for bit — both run here in interpret mode, so the batched
-        kernel's equivalence claim is validated in CI, not only on
-        hardware."""
-        from svc_tpu.ops.kmeans import _plus_plus_init
-        from svc_tpu.ops.kmeans_pallas import (
-            lloyd_pallas,
-            lloyd_pallas_batched,
-        )
+    @pytest.mark.parametrize(
+        "f,repair",
+        [(2, "global_farthest"), (4, "global_farthest"), (3, "opencv_split")],
+    )
+    def test_frames_batched_matches_per_frame_calls(self, f, repair):
+        """kmeans_t_frames over a frame stack equals one kmeans_t call per
+        frame, bit for bit, under both empty-cluster repair rules."""
+        from svc_tpu.ops.kmeans import kmeans_t, kmeans_t_frames
 
-        rng = np.random.default_rng(11)
-        f, d, n, k, attempts = 3, 4, 256, 5, 2
+        rng = np.random.default_rng(11 + f)
+        d, n, k = 4, 256, 5
         feats = rng.integers(-8, 9, (f, d, n)).astype(np.float32)
         mask = rng.random((f, n)) < 0.5
         keys = jax.vmap(jax.random.fold_in, (None, 0))(
             jax.random.key(9), jnp.arange(f)
         )
-        keys_a = jax.vmap(lambda kk: jax.random.split(kk, attempts))(keys)
-        centers0 = jax.vmap(
-            lambda ft, mk, ks: jax.vmap(
-                lambda kk: _plus_plus_init(kk, ft, mk, k)
-            )(ks)
-        )(jnp.asarray(feats), jnp.asarray(mask), keys_a)  # (F, A, k, d)
-        init = (
-            jnp.zeros((attempts, f, 16, 128), jnp.float32)
-            .at[:, :, :k, :d]
-            .set(jnp.swapaxes(centers0, 0, 1))
-        )
-        x_aug = (
-            jnp.zeros((f, 8, n), jnp.float32)
-            .at[:, :d]
-            .set(feats)
-            .at[:, d]
-            .set(1.0)
-        )
-        mask_f = jnp.asarray(mask, jnp.float32)[:, None, :]
-
-        lab_b, cen_b, cmp_b = lloyd_pallas_batched(
-            x_aug, mask_f, init, k, d, 10, 1.0, interpret=True
+        lab_b, cen_b, cmp_b = kmeans_t_frames(
+            jnp.asarray(feats), jnp.asarray(mask), k, keys, repair=repair
         )
         for fi in range(f):
-            lab_1, cen_1, cmp_1 = lloyd_pallas(
-                x_aug[fi], mask_f[fi], init[:, fi],
-                k, d, 10, 1.0, interpret=True,
+            lab_1, cen_1, cmp_1 = kmeans_t(
+                jnp.asarray(feats[fi]), jnp.asarray(mask[fi]), k, keys[fi],
+                repair=repair,
             )
             np.testing.assert_array_equal(
-                np.asarray(lab_b[:, fi]), np.asarray(lab_1)
+                np.asarray(lab_b[fi]), np.asarray(lab_1)
             )
             np.testing.assert_array_equal(
-                np.asarray(cen_b[:, fi]), np.asarray(cen_1)
+                np.asarray(cen_b[fi]), np.asarray(cen_1)
             )
             np.testing.assert_array_equal(
-                np.asarray(cmp_b[:, fi]), np.asarray(cmp_1)
+                np.asarray(cmp_b[fi]), np.asarray(cmp_1)
             )
 
     def test_frames_batched_remainder_group(self):
-        """A frame count that is not a multiple of the kernel group must
-        still match the per-frame path (exercises the tail-group split in
-        kmeans_t_frames; on CPU both sides take the XLA path, so this
-        pins the grouping plumbing, and the TPU kernel equivalence is
-        pinned by the interpret-mode test above)."""
+        """An odd frame count still matches the vmapped per-frame path."""
         from svc_tpu.ops.kmeans import kmeans_t, kmeans_t_frames
 
         rng = np.random.default_rng(13)

@@ -1,7 +1,7 @@
 """Double-buffered H2D staging (runtime.staging) correctness.
 
-The overlap claim is perf (validated on hardware by bench.py's tunnel
-leg); what CI pins is the invariant that makes the overlap safe to ship:
+The overlap itself is a timing property, measured on the card; what
+the tests pin is the invariant that makes the overlap safe to ship:
 the staged stream path produces byte-identical payloads to direct batch
 encoding, across batch-boundary and remainder shapes.
 """
